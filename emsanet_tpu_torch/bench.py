@@ -6,10 +6,16 @@ Counterpart of the repository's `bench.py` for the PyTorch/CUDA port:
 
 It takes `bench.py`'s flags, runs the flagship (R34-NBt1D dual encoder,
 semantic + instance + orientation + scene, panoptic) with random weights
-from a seed in the port's configuration (fused inference,
-head_decode_fusion='interleave'), times whole frames with CUDA events and
-prints ONE JSON line {"metric", "value", "unit", "vs_baseline"}, like
-`bench.py`. It needs a CUDA device.
+from a seed, times whole frames with CUDA events and prints ONE JSON line
+{"metric", "value", "unit", "vs_baseline"}, like `bench.py`. It needs a
+CUDA device.
+
+The head mode comes from `config.best_head_decode_fusion(batch,
+with_postprocessing)`, as the reference `bench.py:82` picks it:
+'decode-planes' below batch 16, 'decode' from 16 up, 'interleave'
+without postprocessing; `--head-decode-fusion` overrides it. These
+thresholds are the reference's own, measured on a TPU; PERF.md records
+what the H100 shows per mode.
 
 `build_flagship`, `random_raw_inputs` and `make_frame` are shared with
 `chip_smoke.py`.
@@ -24,7 +30,12 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from emsanet_tpu_torch.config import ModelConfig, flagship_config
+from emsanet_tpu_torch.config import (
+    HEAD_DECODE_FUSIONS,
+    ModelConfig,
+    best_head_decode_fusion,
+    flagship_config,
+)
 from emsanet_tpu_torch.datasets.metadata import DatasetConfig, get_dataset_config
 from emsanet_tpu_torch.models.emsanet import EMSANet, build_model
 from emsanet_tpu_torch.ops.device_prep import prepare_inputs_device
@@ -36,10 +47,12 @@ BASELINE_FPS = 24.5  # BASELINE.md: Jetson AGX Xavier, TensorRT FP16, b1
 def build_flagship(
     height: int = 480, width: int = 640, dtype: str = "bfloat16",
     backbone: str = "resnet34", device: str = "cuda", seed: int = 0,
+    head_decode_fusion: str = "decode",
 ) -> Tuple[EMSANet, ModelConfig, DatasetConfig]:
     cfg = flagship_config(
         input_height=height, input_width=width, compute_dtype=dtype,
         rgb_encoder_backbone=backbone, depth_encoder_backbone=backbone,
+        head_decode_fusion=head_decode_fusion,
     )
     ds = get_dataset_config("synthetic")
     return build_model(cfg, ds, device=device, seed=seed), cfg, ds
@@ -58,7 +71,8 @@ def random_raw_inputs(n: int, h: int, w: int, seed: int,
 def make_frame(model: EMSANet, cfg: ModelConfig, ds: DatasetConfig,
                with_postprocessing: bool = True,
                raw_inputs: bool = True) -> Callable[[Dict], Dict]:
-    """One frame: device prep -> forward -> postprocess."""
+    """One frame: device prep -> forward -> postprocess, in the head mode
+    of `cfg` (the one `model` was built with)."""
     device = next(model.parameters()).device
     is_thing = torch.tensor(ds.classes_is_thing, device=device)
 
@@ -103,6 +117,10 @@ def main(argv=None) -> int:
                         help="small config for smoke testing")
     parser.add_argument("--dtype", default="bfloat16",
                         choices=("bfloat16", "float32"))
+    parser.add_argument("--head-decode-fusion", default=None,
+                        choices=HEAD_DECODE_FUSIONS,
+                        help="head mode (default: best_head_decode_fusion "
+                        "of the batch size)")
     args = parser.parse_args(argv)
     if args.quick:
         args.batch_size, args.warmup, args.runs = 2, 2, 5
@@ -110,9 +128,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("emsanet_tpu_torch.bench measures the card: no "
                            "CUDA device")
+    mode = args.head_decode_fusion or best_head_decode_fusion(
+        args.batch_size, args.with_postprocessing)
     model, cfg, ds = build_flagship(
         args.height, args.width, args.dtype,
-        "resnet18" if args.quick else "resnet34")
+        "resnet18" if args.quick else "resnet34", head_decode_fusion=mode)
     n, h, w = args.batch_size, args.height, args.width
     if args.raw_inputs:
         batch = random_raw_inputs(n, h, w, 0, "cuda")
@@ -132,7 +152,8 @@ def main(argv=None) -> int:
         "vs_baseline": round(fps / BASELINE_FPS, 3),
     }))
     print(f"# batch={n} dtype={args.dtype} postproc="
-          f"{args.with_postprocessing} latency/batch={ms:.3f}ms "
+          f"{args.with_postprocessing} head_decode_fusion={mode} "
+          f"latency/batch={ms:.3f}ms "
           f"device={torch.cuda.get_device_name(0)}", file=sys.stderr)
     return 0
 

@@ -2,9 +2,10 @@
 
 A copy of the `ModelConfig` fields that the inference frame reads
 (counterpart: `emsanet_tpu/config.py::ModelConfig`). Field names and defaults are
-the same, except the three inference switches at the end
-(`fused_inference`, `head_decode_fusion`, `decoder_megakernel`), which
-default to the configuration this package runs.
+the same, except `fused_inference` (True: the only inference path
+ported) and `decoder_megakernel` ('off': the decoder megakernel is not
+ported yet).
+`best_head_decode_fusion` is the reference's mode choice per batch size.
 
 `validate_for_port` refuses, with a "not ported yet" error, every
 setting this package does not run yet. It never falls back to another
@@ -17,6 +18,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 KNOWN_TASKS = ("semantic", "instance", "orientation", "scene", "normal")
+HEAD_DECODE_FUSIONS = ("interleave", "decode", "decode-both", "decode-planes")
 
 
 @dataclass
@@ -74,7 +76,7 @@ class ModelConfig:
 
     compute_dtype: str = "float32"
     fused_inference: bool = True
-    head_decode_fusion: str = "interleave"
+    head_decode_fusion: str = "decode"
     decoder_megakernel: str = "off"
 
     @property
@@ -123,9 +125,11 @@ def validate_for_port(cfg: ModelConfig, train: bool = False) -> ModelConfig:
     if tuple(cfg.input_modalities) != ("rgb", "depth"):
         _refuse(f"input_modalities={tuple(cfg.input_modalities)} (only "
                 "the dual rgb+depth encoder is ported)")
-    if cfg.head_decode_fusion != "interleave":
-        _refuse(f"head_decode_fusion='{cfg.head_decode_fusion}' (only "
-                "'interleave')")
+    if cfg.head_decode_fusion not in HEAD_DECODE_FUSIONS:
+        raise ValueError(
+            f"head_decode_fusion must be one of {HEAD_DECODE_FUSIONS}, got "
+            f"'{cfg.head_decode_fusion}'"
+        )
     if cfg.decoder_megakernel == "on":
         _refuse("decoder_megakernel='on'")
     if cfg.decoder_megakernel not in ("off", "auto"):
@@ -158,6 +162,24 @@ def validate_for_port(cfg: ModelConfig, train: bool = False) -> ModelConfig:
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                          f"'{cfg.compute_dtype}'")
     return cfg
+
+
+def best_head_decode_fusion(batch_size: int,
+                            with_postprocessing: bool = True) -> str:
+    """The reference's `head_decode_fusion` for a batch size
+    (`emsanet_tpu/config.py::best_head_decode_fusion`, copied as it
+    stands): 'decode-planes' below batch 16, 'decode' from 16 up, and
+    'interleave' without postprocessing (the heads then stay in the
+    forward, for forward-only protocol runs).
+
+    The thresholds were measured on a TPU by the reference, not on the
+    port's card; PERF.md records what the H100 shows per mode.
+    """
+    if not with_postprocessing:
+        return "interleave"
+    if batch_size >= 16:
+        return "decode"
+    return "decode-planes"
 
 
 def flagship_config(**overrides) -> ModelConfig:

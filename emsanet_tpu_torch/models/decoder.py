@@ -7,11 +7,18 @@ NonBottleneck1D blocks (the chain kernel) -> x2 upsample -> 1x1-conv
 projection of the fused RGB skip + add. Then the task head at 1/4 and
 two x2 prediction upsamplings to full resolution.
 
-Under the port's inference configuration (`head_decode_fusion=
-'interleave'`) the semantic head's final x2 stage stays in the
-polyphase domain where the polyphase gate engages (`logits_polyphase`,
-(N, H/2, W/2, 4C), channel c*4 + (p*2+q)); otherwise it returns full-res
-`logits`. Outputs are NHWC, like the JAX package.
+Where the polyphase gate engages at the final x2 stage (its input has
+at least 60*80 pixels), `head_decode_fusion` decides how far the heads
+defer it (`emsanet_tpu/models/decoder.py:354-386`):
+- the semantic head returns `logits_polyphase` ((N, H/2, W/2, 4C),
+  channel c*4 + (p*2+q)) in 'interleave', and `decode_input` in every
+  'decode*' mode;
+- the instance head returns full-res maps, except in 'decode-planes'
+  and 'decode-both', where it returns `decode_input`.
+`decode_input` is `{"x": (N, H/2, W/2, C) NHWC head output, "kernel":
+(C, 1, 3, 3) depthwise weight}`; postprocessing runs the stage in a
+kernel. Below the gate every head returns full-res outputs. Outputs are
+NHWC, like the JAX package.
 """
 
 from __future__ import annotations
@@ -90,10 +97,12 @@ class DecoderModule(nn.Module):
 class PredictionUpsampling(nn.Module):
     """Two x2 stages of the prediction upsampling (x4 to full res)."""
 
-    def __init__(self, method: str, channels: int, defer_final: bool):
+    def __init__(self, method: str, channels: int, defer_final: bool,
+                 defer_final_conv: bool = False):
         super().__init__()
         self.up0 = Upsampling(method, channels)
-        self.up1 = Upsampling(method, channels, defer_interleave=defer_final)
+        self.up1 = Upsampling(method, channels, defer_interleave=defer_final,
+                              defer_conv=defer_final_conv)
 
     def forward(self, x):
         return self.up1(self.up0(x))
@@ -109,7 +118,8 @@ class DenseDecoder(nn.Module):
                  n_classes: int = 40, with_orientation: bool = False,
                  sigmoid_for_center: bool = True,
                  tanh_for_offset: bool = True,
-                 n_channels_per_task: int = 32):
+                 n_channels_per_task: int = 32,
+                 head_decode_fusion: str = "interleave"):
         super().__init__()
         self.task = task
         self.with_orientation = with_orientation
@@ -140,8 +150,12 @@ class DenseDecoder(nn.Module):
         self.n_head = n_head
         # only the semantic head's consumer (argmax / score) commutes with
         # the interleave; instance postprocessing needs full-res maps
+        defer_conv = (
+            head_decode_fusion.startswith("decode") if task == "semantic"
+            else head_decode_fusion in ("decode-planes", "decode-both"))
         self.head_upsampling = PredictionUpsampling(
-            prediction_upsampling, n_head, defer_final=(task == "semantic"))
+            prediction_upsampling, n_head, defer_final=(task == "semantic"),
+            defer_final_conv=defer_conv)
 
     def forward(self, context_out: torch.Tensor,
                 skips: Dict[int, Dict[str, torch.Tensor]]) -> Dict[str, Any]:
@@ -158,6 +172,12 @@ class DenseDecoder(nn.Module):
         else:
             pred = self.head_conv(x)
         pred = self.head_upsampling(pred)
+        if isinstance(pred, tuple):
+            x_half, weight = pred
+            # channels_last: the NHWC view is contiguous, and then this
+            # is no copy
+            return {"side_outputs": (), "decode_input": {
+                "x": _nhwc(x_half).contiguous(), "kernel": weight.detach()}}
         out: Dict[str, Any] = {"side_outputs": ()}
         deferred = pred.shape[1] == 4 * self.n_head
         if self.task == "semantic":

@@ -69,6 +69,7 @@ class EMSANet(nn.Module):
                 upsampling=getattr(cfg, f"{task}_decoder_upsampling"),
                 prediction_upsampling=cfg.upsampling_prediction,
                 zero_init_residual=zero_init,
+                head_decode_fusion=cfg.head_decode_fusion,
                 **extra,
             ))
         if "scene" in cfg.tasks:

@@ -8,7 +8,10 @@ input has at least 60*80 pixels, the gate of the JAX package
 (`upsampling.py:125`); below it, the nearest + conv form runs. With
 `defer_interleave`, the polyphase path returns the (N, 4C, H, W)
 parity-domain output instead of interleaving it, which the semantic
-head's consumer reads as `logits_polyphase`. Tensors are NCHW.
+head's consumer reads as `logits_polyphase`. With `defer_conv`
+(`upsampling.py:137-138`), it returns `(x, depthwise weight)` without
+convolving: postprocessing runs the stage in a kernel
+(`ops/semantic_decode.py`, `ops/instance_head.py`). Tensors are NCHW.
 """
 
 from __future__ import annotations
@@ -53,10 +56,11 @@ class Upsampling(nn.Module):
     'nearest'."""
 
     def __init__(self, method: str, channels: int,
-                 defer_interleave: bool = False):
+                 defer_interleave: bool = False, defer_conv: bool = False):
         super().__init__()
         self.method = method
         self.defer_interleave = defer_interleave
+        self.defer_conv = defer_conv
         if method in ("learned-3x3-zeropad", "learned-3x3"):
             self.depthwise = nn.Conv2d(channels, channels, 3, groups=channels,
                                        bias=False)
@@ -67,7 +71,7 @@ class Upsampling(nn.Module):
         elif method not in ("bilinear", "nearest"):
             raise ValueError(f"Unknown upsampling method '{method}'")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         n, c, h, w = x.shape
         if self.method == "nearest":
             return nearest_x2(x)
@@ -77,6 +81,8 @@ class Upsampling(nn.Module):
         if self.method == "learned-3x3-zeropad" and (
             h * w >= POLYPHASE_MIN_PIXELS
         ):
+            if self.defer_conv:
+                return x, weight
             if self.defer_interleave:
                 return upsample2x_depthwise_polyphase_deferred(x, weight)
             return upsample2x_depthwise_polyphase(x, weight)

@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("stem", "nbt1d_chain", "grouping", "segment")
+SOURCES = ("stem", "nbt1d_chain", "grouping", "segment", "semantic_decode",
+           "instance_head", "plane_interleave")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

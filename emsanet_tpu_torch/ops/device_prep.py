@@ -7,6 +7,7 @@ standardization runs there. Tensors are NHWC, like the JAX package.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -19,10 +20,17 @@ _RGB_SCALE = (1.0 / (255.0 * _RGB_STD)).astype(np.float32)
 _RGB_SHIFT = (_RGB_MEAN / _RGB_STD).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _rgb_affine(device: torch.device):
+    """(scale, shift) on `device`, copied there once: a copy from pageable
+    host memory makes the host wait for the device's queue, every frame."""
+    return (torch.from_numpy(_RGB_SCALE).to(device),
+            torch.from_numpy(_RGB_SHIFT).to(device))
+
+
 def normalize_rgb_device(rgb_u8: torch.Tensor) -> torch.Tensor:
     """(N, H, W, 3) uint8 -> standardized float32."""
-    scale = torch.from_numpy(_RGB_SCALE).to(rgb_u8.device)
-    shift = torch.from_numpy(_RGB_SHIFT).to(rgb_u8.device)
+    scale, shift = _rgb_affine(rgb_u8.device)
     return rgb_u8.to(torch.float32) * scale - shift
 
 

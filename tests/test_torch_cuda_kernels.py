@@ -10,14 +10,27 @@ Tolerances (error relative to the largest magnitude): f32 with TF32 off
 1e-4 (summation order), bf16 2e-2 (stem) / 3e-2 (a 2-block chain; the
 plain version rounds every conv output to bf16, the kernel only the
 pair's intermediate); grouping bit-exact; histogram exact; vector sums
-1e-4 (f32 atomics in varying order); lookup exact.
+1e-4 (f32 atomics in varying order); lookup exact. Semantic decode: f32
+index exact and score 1e-5 relative; bf16 index different on at most
+1e-4 of the pixels and only where the plain version's top two values are
+within one bf16 ulp, score 1e-2 absolute where the index agrees (inputs
+are bf16-representable, so f32 tap products are exact). Instance head:
+f32 1e-5, bf16 2e-2. Plane interleave: bit-exact.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from emsanet_tpu_torch.ops import grouping, nbt1d_chain, segment_kernels, stem
+from emsanet_tpu_torch.ops import (
+    grouping,
+    instance_head,
+    nbt1d_chain,
+    plane_interleave,
+    segment_kernels,
+    semantic_decode,
+    stem,
+)
 
 
 def _t(a):
@@ -70,6 +83,14 @@ def _segment_case(seed, n=2, p=5000, k=65, c=41, d=2):
             rng.randint(0, c, (n, p)).astype(np.int32),
             (rng.rand(n, p) > 0.5).astype(np.float32),
             rng.randn(n, p, d).astype(np.float32))
+
+
+def _head_case(seed, n, h2, w2, c, dtype):
+    """Head output and depthwise weight, bf16-representable."""
+    rng = np.random.RandomState(seed)
+    x = _t((rng.randn(n, h2, w2, c) * 3).astype(np.float32))
+    w = _t(rng.randn(c, 1, 3, 3).astype(np.float32))
+    return (x.cuda().bfloat16().to(dtype), w.cuda().bfloat16().to(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -140,3 +161,74 @@ def test_cuda_grouping_and_segments_match_plain():
     tables = torch.randn((2, 2, 65), device="cuda")
     assert torch.equal(segment_kernels.segment_lookup(args[0], tables),
                        segment_kernels.segment_lookup_plain(args[0], tables))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 60, 80, 40), (1, 33, 70, 37),
+                                   (1, 8, 12, 5),
+                                   # more classes than one staged chunk;
+                                   # 512 needs > 48 KB of shared memory
+                                   (1, 9, 40, 100), (1, 5, 33, 512)])
+@pytest.mark.parametrize("interleaved", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_semantic_decode_matches_plain(shape, interleaved, dtype):
+    _need_cuda()
+    x, w = _head_case(11, *shape, dtype)
+    before = semantic_decode.semantic_decode.launches
+    gi, gs = semantic_decode.semantic_decode(x, w, interleaved)
+    assert semantic_decode.semantic_decode.launches == before + 1
+    plain = (semantic_decode.semantic_decode_interleaved_plain if interleaved
+             else semantic_decode.semantic_decode_planes_plain)
+    wi, ws = plain(x, w)
+    torch.cuda.synchronize()
+    assert gi.shape == wi.shape and gi.dtype == torch.int32
+    same = gi == wi
+    if dtype == torch.float32:
+        assert bool(same.all())
+        torch.testing.assert_close(gs, ws, rtol=1e-5, atol=0)
+    else:
+        assert float((~same).float().mean()) <= 1e-4
+        near = semantic_decode.bf16_near_ties(x, w, interleaved)
+        assert not bool((~same & ~near).any())
+        assert float((gs - ws).abs()[same].max()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [5, 3])
+@pytest.mark.parametrize("interleaved", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_instance_head_matches_plain(c, interleaved, dtype, tol):
+    _need_cuda()
+    x, w = _head_case(12, 2, 60, 80, c, dtype)
+    enc = instance_head.encodings_for(c, True, True)
+    got = instance_head.instance_head(x, w, enc, interleaved)
+    plain = (instance_head.instance_head_upsample_interleaved_plain
+             if interleaved else instance_head.instance_head_upsample_plain)
+    want = plain(x, w, enc)
+    err = (got - want).abs().max() / want.abs().max()
+    assert got.shape == want.shape and float(err) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_interleave_planes_matches_plain():
+    _need_cuda()
+    rng = np.random.RandomState(13)
+    shape = (2, 4, 30, 40)
+    named = {
+        "score": _t(rng.randn(*shape).astype(np.float32)).cuda(),
+        "idx": _t(rng.randint(-2**31, 2**31 - 1, shape).astype(
+            np.int32)).cuda(),
+        "fg": _t(rng.rand(*shape) > 0.5).cuda(),
+    }
+    named["nan"] = torch.full(shape, float("nan"), device="cuda")
+    before = plane_interleave.interleave_planes.launches
+    got = plane_interleave.interleave_planes(named)
+    assert plane_interleave.interleave_planes.launches == before + 1
+    want = plane_interleave.interleave_planes_plain(named)
+    for key in named:
+        g, w = got[key], want[key]
+        assert g.dtype == w.dtype
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), key

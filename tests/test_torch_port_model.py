@@ -365,8 +365,6 @@ def test_weight_map_fails_loudly():
 
 
 @pytest.mark.parametrize("override", [
-    {"head_decode_fusion": "decode"},
-    {"head_decode_fusion": "decode-planes"},
     {"decoder_megakernel": "on"},
     {"tasks": ("semantic", "instance", "normal")},
     {"semantic_decoder": "segformermlp"},

@@ -19,7 +19,7 @@ from emsanet_tpu import ModelConfig as JaxModelConfig
 from emsanet_tpu import postprocessing as jax_pp
 from emsanet_tpu.datasets.metadata import get_metadata_config
 from emsanet_tpu_torch import postprocessing as pp
-from emsanet_tpu_torch.config import ModelConfig, NotPortedError
+from emsanet_tpu_torch.config import ModelConfig
 from emsanet_tpu_torch.datasets.metadata import get_dataset_config
 
 N, H, W, C = 2, 48, 64, 40
@@ -151,10 +151,3 @@ def test_nms_keep_mask_matches_jax(k):
     want = jax_pp._nms_keep_mask(jnp.asarray(hm), k)
     got = pp._nms_keep_mask(torch.from_numpy(hm), k)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
-def test_deferred_head_outputs_are_refused():
-    heads = _to(_heads(3), torch.from_numpy)
-    heads["semantic"] = {"decode_input": {"x": torch.zeros(1)}}
-    with pytest.raises(NotPortedError, match="not ported yet"):
-        pp.postprocess(heads, torch.zeros(41, dtype=torch.bool))
