@@ -39,6 +39,21 @@ Phases (any failure exits non-zero and prints no result):
      and of the timed frame, and whether ATen's depthwise conv kernel
      still runs
      (chiprun_out/chip_smoke_profile.txt).
+  7. train: the flagship training step (R34-NBt1D, semantic + instance +
+     orientation + scene, NYUv2 labels; 640x480, b8, bf16 compute with f32
+     parameters, fused_training, multiscale supervision, median-frequency
+     class weights, SGD Nesterov at lr 0.01, the config's dropout) on one
+     batch of the synthetic dataset from the train preprocessor, already
+     on the device: 3 steps with the launch counters set to 0 before them;
+     each of the four train kernels must launch, every loss be finite and
+     the last total below the first. The kernels' inputs of the first
+     step are captured and each train kernel is held against its plain
+     version on them, in bf16 and in f32 (TF32 off). A 96x128 R18 f32
+     b4 step (dropout 0, every NBt1D tail through the pairs) runs on the card
+     and on the CPU from the same weights and batch. Timing: the b8 step
+     (median and range of rounds, CUDA events), its device busy share
+     under torch.profiler, each train kernel, its plain version and its
+     bound; the loader's host time per batch.
 
 Tolerances (error relative to the largest magnitude of the plain result
 unless stated): stem bf16 2e-2, f32 1e-4; NBt1D chain bf16 5e-2 (K
@@ -49,7 +64,25 @@ varying order); lookup exact; semantic decode f32 index exact and score
 1e-5 relative, bf16 index different on at most 1e-4 of the pixels and
 only where the plain version's top two values are within one bf16 ulp,
 score 1e-2 absolute where the index agrees; instance head f32 1e-5, bf16
-2e-2; plane interleave bit-exact.
+2e-2; plane interleave bit-exact. Train kernels: NBt1D pair forward y
+bf16 5e-2 / f32 1e-4 and sums 1e-4; backward every gradient bf16 5e-2 /
+f32 1e-3: the weight and vector gradients relative to the largest sum
+of the magnitudes of the terms they add up (on the main path's data they
+are sums over 153600 pixels that cancel; gb13 feeds the next BatchNorm
+and is zero up to rounding), gu relative to its max over all but the 1e-3
+share of elements with the largest errors (a ReLU mask can flip where a
+pre-activation lies within rounding of 0, and each flip moves the 3 x C
+elements of gu it reaches by up to their full size); the error relative
+to each result's max is logged, not gated (it reached 5.8e-3 in f32);
+semantic head loss bf16 1e-2 / f32 1e-5 (the kernel rounds the
+summed polyphase taps, the plain conv each 3x3 tap), dx 5e-2 / 1e-4,
+dweight 5e-2 / 1e-3. Small train step, card vs CPU: losses 1e-4
+relative, BatchNorm running statistics atol 1e-4 / rtol 1e-3; the
+parameter updates (and gradients) by the relative norm of their
+difference, < 5e-2 over all and < 0.5 per tensor: an f32 gradient of
+this network moves by ~1e-2 when its input moves by 1e-6
+(tests/test_torch_port_train.py), so element-wise bounds on them would
+measure that, not the kernels.
 
 Output: progress lines, the card's name and power limit, one JSON line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
@@ -105,6 +138,24 @@ PATH_KERNELS = {  # the kernels each mode's frame must launch
                                "interleave_planes"},
 }
 NEW_KERNELS = {"semantic_decode", "instance_head", "interleave_planes"}
+# the training step's kernels: (wrapper, module, source, TPU kernel)
+TRAIN_KERNELS = (
+    ("pair_fwd", "nbt1d_train", "emsanet_tpu_torch/csrc/nbt1d_train.cu",
+     "emsanet_tpu/ops/nbt1d_train.py:536"),
+    ("pair_bwd", "nbt1d_train", "emsanet_tpu_torch/csrc/nbt1d_train.cu",
+     "emsanet_tpu/ops/nbt1d_train.py:619"),
+    ("head_loss_fwd", "semantic_train_head",
+     "emsanet_tpu_torch/csrc/semantic_train_head.cu",
+     "emsanet_tpu/ops/semantic_train_head.py:490"),
+    ("head_loss_bwd", "semantic_train_head",
+     "emsanet_tpu_torch/csrc/semantic_train_head.cu",
+     "emsanet_tpu/ops/semantic_train_head.py:536"),
+)
+TRAIN_NAMES = {"pair_fwd": "nbt1d_pair_fwd", "pair_bwd": "nbt1d_pair_bwd",
+               "head_loss_fwd": "semantic_head_loss_fwd",
+               "head_loss_bwd": "semantic_head_loss_bwd"}
+TRAIN_STEPS = 3
+TRAIN_ROUNDS = 5
 
 
 def log(msg: str) -> None:
@@ -126,13 +177,14 @@ def gpu_name_and_limit() -> str:
 class Capture:
     """Wraps each kernel wrapper (module attribute) to record its inputs."""
 
-    def __init__(self, modules):
+    def __init__(self, modules, kernels=KERNELS):
         self.modules = modules
-        self.calls = {name: [] for name, *_ in KERNELS}
+        self.kernels = kernels
+        self.calls = {name: [] for name, *_ in kernels}
         self._orig = {}
 
     def __enter__(self):
-        for name, mod, *_ in KERNELS:
+        for name, mod, *_ in self.kernels:
             m = self.modules[mod]
             orig = getattr(m, name)
             self._orig[name] = (m, orig)
@@ -149,13 +201,13 @@ class Capture:
             setattr(m, name, orig)
 
 
-def counts(modules):
+def counts(modules, kernels=KERNELS):
     return {name: getattr(modules[mod], name).launches
-            for name, mod, *_ in KERNELS}
+            for name, mod, *_ in kernels}
 
 
-def reset_counts(modules):
-    for name, mod, *_ in KERNELS:
+def reset_counts(modules, kernels=KERNELS):
+    for name, mod, *_ in kernels:
         getattr(modules[mod], name).launches = 0
 
 
@@ -626,11 +678,17 @@ def run() -> int:
                     f"(ms): {top}" if busy_ms > 0 else
                     f"[profile {mode} b{b}] no device time recorded: not "
                     "measured")
+    # -- 7. train -------------------------------------------------------------
+    del frames, captured, results
+    torch.cuda.empty_cache()
+    train_entries, train_report = train_phase(torch, card)
+    entries.extend(train_entries)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": card, "frame_ms": frame_ms, "detail": detail,
                    "launches": launches, "errors": errors,
                    "agreement_b8": agreement,
-                   "small_frames": small, "profile": busy}, f, indent=1)
+                   "small_frames": small, "profile": busy,
+                   "train": train_report}, f, indent=1)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))
@@ -746,11 +804,402 @@ def profile_frame(frame, batch):
         frame(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # user annotations (the optimizer's step range) span kernels that
+    # are counted on their own
     rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA
-            and ev.self_device_time_total > 0]
+            and ev.self_device_time_total > 0
+            and not ev.key.startswith("Optimizer.")]
     return wall_ms, sorted(rows, reverse=True)
+
+
+# ---------------------------------------------------------------------------
+# 7. training
+
+
+def train_setup(torch, height, width, backbone, batch_size, dtype, device,
+                dropout, seed=0):
+    """(model, optimizer, step, device batch, cfg, loader seconds per
+    batch) of a synthetic-data training configuration: the first of 3
+    batches drawn through the train preprocessor and the loader."""
+    from emsanet_tpu_torch import config as pc
+    from emsanet_tpu_torch.data import DataLoader
+    from emsanet_tpu_torch.datasets.metadata import get_dataset_config
+    from emsanet_tpu_torch.datasets.synthetic import get_dataset
+    from emsanet_tpu_torch.models.emsanet import build_train_model
+    from emsanet_tpu_torch.preprocessing.transforms import get_preprocessor
+    from emsanet_tpu_torch.training.optim import get_optimizer
+    from emsanet_tpu_torch.training.step import (
+        extract_device_batch,
+        make_train_step,
+    )
+
+    drop = {} if dropout else {
+        "dropout_p": 0.0, "semantic_decoder_block_dropout_p": 0.0,
+        "instance_decoder_block_dropout_p": 0.0}
+    cfg = pc.validate_train_for_port(pc.EMSANetConfig(
+        model=pc.ModelConfig(
+            tasks=("semantic", "instance", "orientation", "scene"),
+            enable_panoptic=True, input_height=height, input_width=width,
+            rgb_encoder_backbone=backbone, depth_encoder_backbone=backbone,
+            fused_training=True, **drop),
+        data=pc.DataConfig(dataset="synthetic", batch_size=batch_size,
+                           synthetic_n_samples=3 * batch_size),
+        train=pc.TrainConfig(mixed_precision=dtype == "bfloat16",
+                             seed=seed)))
+    ds_config = get_dataset_config("synthetic")
+    dataset = get_dataset(cfg.data, cfg.model, "train")
+    dataset.preprocessor = get_preprocessor(
+        cfg, ds_config, "train",
+        multiscale_downscales=cfg.model.side_output_downscales)
+    loader = DataLoader(dataset, batch_size, shuffle=True, drop_last=True,
+                        n_workers=8, seed=seed)
+    t0 = time.perf_counter()
+    batch = None
+    for b in loader.batches(0):  # 3 batches: the workers' steady state
+        batch = b if batch is None else batch
+    loader_s = (time.perf_counter() - t0) / len(loader)
+    cw = torch.from_numpy(dataset.semantic_compute_class_weights()).to(device)
+    model = build_train_model(cfg.model, ds_config, device=device, seed=seed)
+    opt = get_optimizer(model.parameters(), cfg.train)
+    step = make_train_step(model, cfg, opt, cw)
+    return (model, opt, step, extract_device_batch(batch, device), cfg,
+            loader_s)
+
+
+def _finite_losses(metrics, where):
+    import torch
+
+    for key, v in metrics.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{where}: loss {key} is not finite")
+
+
+def train_kernel_spec(name, args, tm, hm):
+    """(kernel fn, plain fn, bytes, ops, ops dtype) of one captured call
+    of a train kernel; ops of the pair count 2 ops per multiply-add."""
+    if name in ("pair_fwd", "pair_bwd"):
+        u = args[1]
+        n, h, w, c = u.shape
+        px, it = n * h * w, u.element_size()
+        wbytes = 2 * 3 * c * c * it
+        if name == "pair_fwd":
+            byts = 2 * px * c * it + wbytes
+            ops = 12 * c * c * px
+            return (lambda: tm.pair_fwd(*args),
+                    lambda: tm.pair_fwd_plain(*args), byts, ops,
+                    str(u.dtype).split(".")[1])
+        # recompute the forward (12 C^2 per pixel), then data and weight
+        # gradients of both convs (24 C^2)
+        byts = 3 * px * c * it + wbytes + 2 * 3 * c * c * 4
+        return (lambda: tm.pair_bwd(*args), lambda: tm.pair_bwd_plain(*args),
+                byts, 36 * c * c * px, str(u.dtype).split(".")[1])
+    x, target = args[0], args[2]
+    logits = x.numel() * 4  # full-res logits
+    byts = x.numel() * x.element_size() + target.numel() * 4
+    if name == "head_loss_fwd":
+        # per logit: 4 taps (7), max, exp of the difference and sum (~5)
+        return (lambda: hm.head_loss_fwd(*args),
+                lambda: hm.head_loss_fwd_plain(*args), byts, 12 * logits,
+                "float32")
+    # per logit: the forward's 12, softmax and dz (~4), dx and dweight
+    # taps (16)
+    return (lambda: hm.head_loss_bwd(*args),
+            lambda: hm.head_loss_bwd_plain(*args),
+            byts + x.numel() * x.element_size(), 32 * logits, "float32")
+
+
+def _train_f32(name, args):
+    if name.startswith("pair"):
+        mode, u, s, t, w31, b31, w13, b13, *rest = args
+        out = [mode, u.float(), s, t, w31.float(), b31, w13.float(), b13]
+        if rest:
+            out += [rest[0].float(), rest[1]]
+        return tuple(out)
+    return (args[0].float(), *args[1:])
+
+
+def compare_train(name, args, tm, hm, label):
+    """A train kernel against its plain version on one call's inputs:
+    (gated error per output, largest absolute difference, worst error
+    relative to the max); raises beyond the tolerance."""
+    import torch
+
+    kfn, pfn, *_ = train_kernel_spec(name, args, tm, hm)
+    with torch.no_grad():
+        got, want = kfn(), pfn()
+    torch.cuda.synchronize()
+    bf16 = label == "bf16"
+    if name == "pair_fwd":
+        checks = [("y", got[0], want[0], 5e-2 if bf16 else 1e-4),
+                  ("sums", got[1], want[1], 1e-4)]
+    elif name == "pair_bwd":
+        checks = []
+        for key, g, w in zip(("gu", "gs", "gt", "gw31", "gb31", "gw13",
+                              "gb13"), got, want):
+            if args[0] == "plain" and key in ("gs", "gt"):
+                if float(g.abs().max()) != 0.0:
+                    raise AssertionError(f"pair_bwd: {key} not 0 in plain")
+                continue
+            checks.append((key, g, w, 5e-2 if bf16 else 1e-3))
+        # the weight and vector gradients sum terms of both signs over
+        # all pixels, which cancel (gb13 feeds the next BatchNorm, which
+        # removes any constant: it is zero up to rounding on the main
+        # path): their error is taken relative to the size of the terms
+        # summed. gu leaves out its 1e-3 share of elements with the largest
+        # errors: where a pre-activation of the first conv lies within
+        # rounding of 0 its ReLU mask can flip, and each flip moves the
+        # 3 x C elements of gu that it reaches (192 at C=64) by up to their
+        # full size
+        scales = _pair_term_scales(torch, args)
+        checks = [c[:4] + (scales.get(c[0], "quantile"),) for c in checks]
+    elif name == "head_loss_fwd":
+        checks = [("loss", got[0] / got[1], want[0] / want[1],
+                   1e-2 if bf16 else 1e-5), ("wsum", got[1], want[1], 1e-6)]
+    else:
+        checks = [("dx", got[0], want[0], 5e-2 if bf16 else 1e-4),
+                  ("dweight", got[1], want[1], 5e-2 if bf16 else 1e-3)]
+    worst, abs_err, max_rel = {}, 0.0, 0.0
+    for key, g, w, tol, *scale in checks:
+        if not scale:
+            err = rel_err(g, w)
+        elif scale[0] == "quantile":
+            d = (g.float() - w.float()).abs().reshape(-1)
+            k = d.numel() - max(d.numel() // 1000, 1)
+            top = w.float().abs().max()
+            err = float(d.kthvalue(k).values / top)
+            # logged, not gated: the share beyond the tolerance, the norm
+            worst[f"{key}:share_beyond"] = float((d > tol * top).float()
+                                                 .mean())
+            worst[f"{key}:norm"] = float(d.norm() / w.float().norm())
+        else:
+            err = float((g.float() - w.float()).abs().max()) / max(
+                float(w.float().abs().max()), scale[0])
+        if not err <= tol:
+            raise AssertionError(f"{name} ({label}) {key}: error {err:.3e} "
+                                 f"> tolerance {tol:.1e}")
+        worst[key] = err
+        abs_err = max(abs_err, float((g.float() - w.float()).abs().max()))
+        if key != "gb13":
+            max_rel = max(max_rel, rel_err(g, w))
+    return worst, abs_err, max_rel
+
+
+def _pair_term_scales(torch, args):
+    """For the pair's weight and vector gradients, the largest sum of the
+    magnitudes of the terms each adds up over the pixels: |gz u| (gs),
+    |gz| (gt), |da| (gb31), |dy| (gb13); the weight gradients of |v|
+    against |da| (gw31) and of |a| against |dy| (gw13). gz, da, dy from
+    autograd of the plain pair with its intermediates kept."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
+
+    mode, u, s, t, w31, b31, w13, b13, gy, gsums = args
+    dt = u.dtype
+
+    def rnd(x):  # the plain version's rounding, identity gradient
+        return x + (x.to(dt).float() - x).detach()
+
+    with torch.enable_grad():
+        uf = u.detach().permute(0, 3, 1, 2).float()
+        z = (uf * s[:, None, None] + t[:, None, None] if mode == "affine"
+             else uf).requires_grad_(True)
+        v = rnd(F.relu(z)) if mode == "affine" else z
+        k31 = w31.to(dt).float().permute(2, 1, 0)[..., None]
+        k13 = w13.to(dt).float().permute(2, 1, 0)[:, :, None]
+        z31 = F.conv2d(v, k31, b31.float(), padding=(1, 0))
+        a = rnd(F.relu(z31))
+        z13 = F.conv2d(a, k13, b13.float(), padding=(0, 1))
+        y = rnd(z13)
+        sums = torch.stack([y.sum((0, 2, 3)), (y * y).sum((0, 2, 3))])
+        gz, da, dy = torch.autograd.grad(
+            (y, sums), (z, z31, z13), (gy.permute(0, 3, 1, 2).float(),
+                                       gsums.float()))
+    with torch.no_grad():
+        dims = (0, 2, 3)
+        return {
+            "gs": float((gz * uf).abs().sum(dims).max()),
+            "gt": float(gz.abs().sum(dims).max()),
+            "gw31": float(conv2d_weight(v.detach().abs(), k31.shape,
+                                        da.abs(), padding=(1, 0)).max()),
+            "gb31": float(da.abs().sum(dims).max()),
+            "gw13": float(conv2d_weight(a.detach().abs(), k13.shape,
+                                        dy.abs(), padding=(0, 1)).max()),
+            "gb13": float(dy.abs().sum(dims).max())}
+
+
+def small_train_step(torch, tm):
+    """One 96x128 R18 f32 b4 step on the card and on the CPU, same
+    weights and batch, every NBt1D tail through the pairs. (At b2 the
+    BatchNorms of the 3x4 maps at 1/32 normalize 24 values, and f32
+    rounding reaches ~1e-4 in the instance losses.)"""
+    report = {}
+    min_pixels = tm.MIN_PIXELS
+    tm.MIN_PIXELS = 0
+    try:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model, _, step, batch, _, _ = train_setup(
+                torch, 96, 128, "resnet18", 4, "float32", dev, False, seed=1)
+            before = {k: v.detach().clone()
+                      for k, v in model.named_parameters()}
+            metrics = step(batch)
+            runs[dev] = (metrics, before, model)
+        (mc, bc, model_c), (mp, bp, model_p) = runs["cuda"], runs["cpu"]
+        for key in mp:
+            err = abs(float(mc[key]) - float(mp[key])) / abs(float(mp[key]))
+            report[f"loss/{key}"] = err
+            if err > 1e-4:
+                raise AssertionError(f"small train step: loss {key} card vs "
+                                     f"CPU {err:.2e} > 1e-4")
+        for key, buf in model_p.named_buffers():
+            got = dict(model_c.named_buffers())[key].cpu()
+            if not torch.allclose(got, buf, atol=1e-4, rtol=1e-3):
+                raise AssertionError(f"small train step: BN statistic {key} "
+                                     "card vs CPU beyond atol 1e-4 / rtol "
+                                     "1e-3")
+        params_c = dict(model_c.named_parameters())
+        num = den = 0.0
+        worst = 0.0
+        for key, p in model_p.named_parameters():
+            dp = p.detach() - bp[key]
+            dc = params_c[key].detach().cpu() - bc[key].cpu()
+            d, r = float((dc - dp).norm()), float(dp.norm())
+            num, den = num + d * d, den + r * r
+            worst = max(worst, d / max(r, 1e-12) if r > 1e-6 else 0.0)
+        report["update_rel"] = (num / den) ** 0.5
+        report["update_worst_tensor"] = worst
+        if report["update_rel"] > 5e-2 or worst > 0.5:
+            raise AssertionError(f"small train step: parameter updates card "
+                                 f"vs CPU {report['update_rel']:.2e} "
+                                 f"(worst tensor {worst:.2e})")
+    finally:
+        tm.MIN_PIXELS = min_pixels
+    log(f"[train] 96x128 R18 f32 b4 step, card vs CPU: {json.dumps(report)}")
+    return report
+
+
+def train_phase(torch, card):
+    """Phase 7; returns the train kernels' JSON entries and a report."""
+    from emsanet_tpu_torch.bench import time_cuda
+    from emsanet_tpu_torch.ops import nbt1d_train as tm
+    from emsanet_tpu_torch.ops import semantic_train_head as hm
+    from emsanet_tpu_torch.train import dropout_generator_for
+
+    torch.set_grad_enabled(True)
+    modules = {"nbt1d_train": tm, "semantic_train_head": hm}
+    report = {}
+    model, _, step, batch, cfg, loader_s = train_setup(
+        torch, 480, 640, "resnet34", 8, "bfloat16", "cuda", True)
+    log(f"[train] loader host time per b8 batch (3 batches, 8 worker "
+        f"threads, 640x480): {loader_s * 1e3:.1f} ms")
+    report["loader_ms_per_batch"] = loader_s * 1e3
+
+    # (a) the main path: 3 steps, launch counters from 0
+    reset_counts(modules, TRAIN_KERNELS)
+    totals = []
+    with Capture(modules, TRAIN_KERNELS) as cap:
+        for i in range(TRAIN_STEPS):
+            metrics = step(batch, dropout_generator_for(0, 0, i, "cuda"))
+            if i == 0:
+                calls = {k: list(v) for k, v in cap.calls.items()}
+            _finite_losses(metrics, f"train step {i}")
+            totals.append(float(metrics["total_loss"]))
+            log(f"[train] b8 640x480 bf16 step {i}: " + json.dumps(
+                {k: round(float(v), 5) for k, v in metrics.items()}))
+    torch.cuda.synchronize()
+    launches = counts(modules, TRAIN_KERNELS)
+    log(f"[train] launches over {TRAIN_STEPS} steps: {json.dumps(launches)}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"train kernel {name} was not launched")
+    if not totals[-1] < totals[0]:
+        raise AssertionError(f"train loss did not fall: {totals}")
+    log(f"[train] total loss step 0 {totals[0]:.5f} -> step "
+        f"{TRAIN_STEPS - 1} {totals[-1]:.5f}: lower")
+    report.update(launches=launches, total_loss=totals)
+
+    # (b) each train kernel against its plain version, bf16 then f32
+    errors, max_abs, max_rel = {}, {}, {}
+    for name, *_ in TRAIN_KERNELS:
+        for args, _ in calls[name]:
+            for label, a in (("bf16", args), ("f32", _train_f32(name, args))):
+                errs, abs_err, rel = compare_train(name, a, tm, hm, label)
+                key = f"{name}/{label}"
+                for out, err in errs.items():
+                    k = f"{key}/{out}"
+                    errors[k] = max(errors.get(k, 0.0), err)
+                max_rel[key] = max(max_rel.get(key, 0.0), rel)
+                if label == "bf16":
+                    max_abs[name] = max(max_abs.get(name, 0.0), abs_err)
+    log(f"[train kernels vs plain] worst errors: {json.dumps(errors)}")
+    log(f"[train kernels vs plain] worst errors relative to the max "
+        f"(logged): {json.dumps(max_rel)}")
+    report.update(errors=errors, errors_relative_to_max=max_rel)
+
+    # (c) the small step, card vs CPU
+    report["small_step"] = small_train_step(torch, tm)
+
+    # (d) timing: the step, its profile, each kernel
+    rounds = []
+    for i in range(TRAIN_ROUNDS + 1):
+        ms = time_cuda(lambda: step(batch, dropout_generator_for(
+            0, 1, i, "cuda")), 0, 1)
+        if i:  # the first round warms up
+            rounds.append(ms)
+    step_ms = statistics.median(rounds)
+    log(f"[train] b8 640x480 bf16 step: median {step_ms:.2f} ms of "
+        f"{TRAIN_ROUNDS} rounds ({min(rounds):.2f}-{max(rounds):.2f}); "
+        f"{card}")
+    wall_ms, rows = profile_frame(lambda b: step(b), batch)
+    busy_ms = sum(r[0] for r in rows)
+    log(f"[train] profiled step: wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%)" if busy_ms > 0
+        else "[train] profiled step: no device time recorded: not measured")
+    with open(os.path.join(OUT_DIR, "chip_smoke_train_profile.txt"),
+              "w") as f:
+        f.write(f"{card}\ntrain step b8 640x480 bf16: wall {wall_ms:.3f} "
+                f"ms, device busy {busy_ms:.3f} ms\n")
+        for ms, count, key in rows:
+            f.write(f"{ms:10.4f} ms {count:6d}x  {key}\n")
+    report.update(step_ms=step_ms, step_rounds=rounds,
+                  profile={"wall_ms": wall_ms, "busy_ms": busy_ms})
+
+    entries, detail = [], {}
+    for name, mod, source, replaces in TRAIN_KERNELS:
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "calls": 0,
+               "bound_by": None, "sites": []}
+        for args, _ in calls[name]:
+            kfn, pfn, byts, ops, odt = train_kernel_spec(name, args, tm, hm)
+            with torch.no_grad():
+                ms, plain = time_cuda(kfn, 2, 10), time_cuda(pfn, 2, 10)
+            t_bytes = byts / PEAK_BYTES * 1e3
+            t_ops = ops / PEAK_OPS[odt] * 1e3
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            tot["bound_by"] = by if tot["bound_by"] in (None, by) \
+                else "operations"
+            tot["ms"] += ms
+            tot["plain_ms"] += plain
+            tot["bound_ms"] += max(t_bytes, t_ops)
+            tot["calls"] += 1
+            tot["sites"].append({"shape": list(args[1 if name.startswith(
+                "pair") else 0].shape), "ms": ms, "plain_ms": plain,
+                "bound_ms": max(t_bytes, t_ops), "bound_by": by})
+        detail[name] = tot
+        log(f"[train kernel] {name}: {tot['calls']} calls per step, ms "
+            f"{tot['ms']:.4f} plain {tot['plain_ms']:.4f} bound "
+            f"{tot['bound_ms']:.4f} ({tot['bound_by']})")
+        entries.append({
+            "name": TRAIN_NAMES[name], "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_abs[name], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": tot["bound_by"], "library_ms": None,
+        })
+    report["kernels"] = detail
+    del model, calls, cap
+    return entries, report
 
 
 def main() -> int:

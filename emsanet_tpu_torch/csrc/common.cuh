@@ -32,6 +32,34 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// Deterministic column sums of a (rows, cols) f32 array of per-block
+// partials, for the kernels whose TPU versions accumulate across a
+// sequential grid (the train kernels). Two passes, each summing its rows
+// in a fixed order: (rows, cols) -> (splits, cols) in `tmp` -> (cols).
+constexpr int kReduceSplits = 64;
+
+static __global__ void reduce_rows_kernel(const float* __restrict__ in,
+                                          float* __restrict__ out, int rows,
+                                          int cols, int splits) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= cols) return;
+  float acc = 0.f;
+  for (int r = blockIdx.y; r < rows; r += splits)
+    acc += in[(size_t)r * cols + col];
+  out[(size_t)blockIdx.y * cols + col] = acc;
+}
+
+// tmp holds kReduceSplits * cols floats.
+inline int reduce_rows(const float* in, float* out, float* tmp, int rows,
+                       int cols, cudaStream_t stream) {
+  const int splits = rows < kReduceSplits ? rows : kReduceSplits;
+  reduce_rows_kernel<<<dim3(ceil_div(cols, 128), splits), 128, 0, stream>>>(
+      in, tmp, rows, cols, splits);
+  reduce_rows_kernel<<<dim3(ceil_div(cols, 128), 1), 128, 0, stream>>>(
+      tmp, out, splits, cols, 1);
+  return (int)cudaGetLastError();
+}
+
 // The final learned x2 stage (nearest x2 + zero-padded depthwise 3x3) in
 // its polyphase form, for the kernels that fuse it with their consumer
 // (semantic_decode.cu, instance_head.cu). Output parity p = pr*2 + pc of

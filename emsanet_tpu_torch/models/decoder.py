@@ -19,6 +19,13 @@ defer it (`emsanet_tpu/models/decoder.py:354-386`):
 (C, 1, 3, 3) depthwise weight}`; postprocessing runs the stage in a
 kernel. Below the gate every head returns full-res outputs. Outputs are
 NHWC, like the JAX package.
+
+In train mode (`emsanet_tpu/models/decoder.py`, train=True): the blocks
+take their dropout, every module of a decoder built with side outputs
+emits one (a 1x1 conv before its x2 upsample, at downscales 32, 16, 8;
+encoded like the head), and with `fused_train_head` the semantic head
+defers its final x2 stage at every size: `decode_input` then carries the
+weight itself, not detached, for the fused head loss.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from torch import nn
 
 from emsanet_tpu_torch.models.layers import (
     ConvNormAct,
+    Linear,
     Norm,
     NonBottleneck1D,
     apply_blocks_fused,
@@ -71,13 +79,20 @@ class DecoderModule(nn.Module):
 
     def __init__(self, cin: int, features: int, n_blocks: int,
                  fusion: str, skip_channels: Optional[int], upsampling: str,
-                 zero_init_residual: bool):
+                 zero_init_residual: bool, block_dropout_p: float = 0.0,
+                 side_output_channels: Optional[int] = None,
+                 fused_training: bool = False):
         super().__init__()
         self.conv_in = ConvNormAct(cin, features, (3, 3))
         self.n_blocks = n_blocks
+        self.fused_training = fused_training
         for i in range(n_blocks):
             setattr(self, f"block{i}", NonBottleneck1D(
-                features, features, zero_init_residual=zero_init_residual))
+                features, features, zero_init_residual=zero_init_residual,
+                dropout_p=block_dropout_p))
+        if side_output_channels:
+            self.side_output = conv(features, side_output_channels, (1, 1),
+                                    bias=True)
         self.upsample = Upsampling(upsampling, features)
         self.skip_fusion = (
             EncoderDecoderFusion(fusion, skip_channels, features)
@@ -85,24 +100,30 @@ class DecoderModule(nn.Module):
         )
 
     def forward(self, x, skips):
+        """(x, side output or None; side outputs only in train mode)."""
         x = self.conv_in(x)
         blocks = [getattr(self, f"block{i}") for i in range(self.n_blocks)]
-        x = apply_blocks_fused(blocks, x)
+        x = apply_blocks_fused(blocks, x, self.fused_training)
+        side = None
+        if self.training and hasattr(self, "side_output"):
+            side = self.side_output(x)
         x = self.upsample(x)
         if self.skip_fusion is not None and skips is not None:
             x = self.skip_fusion(x, skips)
-        return x
+        return x, side
 
 
 class PredictionUpsampling(nn.Module):
     """Two x2 stages of the prediction upsampling (x4 to full res)."""
 
     def __init__(self, method: str, channels: int, defer_final: bool,
-                 defer_final_conv: bool = False):
+                 defer_final_conv: bool = False,
+                 defer_final_conv_train: bool = False):
         super().__init__()
         self.up0 = Upsampling(method, channels)
         self.up1 = Upsampling(method, channels, defer_interleave=defer_final,
-                              defer_conv=defer_final_conv)
+                              defer_conv=defer_final_conv,
+                              defer_conv_train=defer_final_conv_train)
 
     def forward(self, x):
         return self.up1(self.up0(x))
@@ -119,35 +140,41 @@ class DenseDecoder(nn.Module):
                  sigmoid_for_center: bool = True,
                  tanh_for_offset: bool = True,
                  n_channels_per_task: int = 32,
-                 head_decode_fusion: str = "interleave"):
+                 head_decode_fusion: str = "interleave",
+                 block_dropout_p: float = 0.0, side_outputs: bool = False,
+                 fused_training: bool = False,
+                 fused_train_head: bool = False):
         super().__init__()
         self.task = task
         self.with_orientation = with_orientation
         self.sigmoid_for_center = sigmoid_for_center
         self.tanh_for_offset = tanh_for_offset
         self.n_modules = len(n_channels)
+        if task == "instance":
+            n_sub = 3 if with_orientation else 2
+            self.out_channels = (1, 2, 2)[:n_sub]
+            n_head = sum(self.out_channels)
+        elif task == "semantic":
+            n_head = n_classes
+        else:
+            raise ValueError(f"Unknown dense decoder task '{task}'")
+        self.n_head = n_head
         c = cin
         for i, (f, ds) in enumerate(zip(n_channels, downsamplings)):
             setattr(self, f"module{i}", DecoderModule(
                 c, f, n_blocks, fusion, skip_channels.get(ds), upsampling,
-                zero_init_residual))
+                zero_init_residual, block_dropout_p,
+                n_head if side_outputs else None, fused_training))
             c = f
         self.downsamplings = tuple(downsamplings)
         if task == "instance":
-            n_sub = 3 if with_orientation else 2
-            self.out_channels = (1, 2, 2)[:n_sub]
             self.head_shared_conv = ConvNormAct(c, n_channels_per_task * n_sub)
             for t, oc in enumerate(self.out_channels):
                 setattr(self, f"head_task_conv{t}",
                         conv(n_channels_per_task, oc, (3, 3), bias=True))
             self.n_channels_per_task = n_channels_per_task
-            n_head = sum(self.out_channels)
-        elif task == "semantic":
-            self.head_conv = conv(c, n_classes, (3, 3), bias=True)
-            n_head = n_classes
         else:
-            raise ValueError(f"Unknown dense decoder task '{task}'")
-        self.n_head = n_head
+            self.head_conv = conv(c, n_classes, (3, 3), bias=True)
         # only the semantic head's consumer (argmax / score) commutes with
         # the interleave; instance postprocessing needs full-res maps
         defer_conv = (
@@ -155,13 +182,17 @@ class DenseDecoder(nn.Module):
             else head_decode_fusion in ("decode-planes", "decode-both"))
         self.head_upsampling = PredictionUpsampling(
             prediction_upsampling, n_head, defer_final=(task == "semantic"),
-            defer_final_conv=defer_conv)
+            defer_final_conv=defer_conv,
+            defer_final_conv_train=(task == "semantic" and fused_train_head))
 
     def forward(self, context_out: torch.Tensor,
                 skips: Dict[int, Dict[str, torch.Tensor]]) -> Dict[str, Any]:
         x = context_out
+        sides = []
         for i, ds in enumerate(self.downsamplings):
-            x = getattr(self, f"module{i}")(x, skips.get(ds))
+            x, side = getattr(self, f"module{i}")(x, skips.get(ds))
+            if side is not None:
+                sides.append(self._encode(_nhwc(side)))
         if self.task == "instance":
             h = self.head_shared_conv(x)
             cpt = self.n_channels_per_task
@@ -176,9 +207,10 @@ class DenseDecoder(nn.Module):
             x_half, weight = pred
             # channels_last: the NHWC view is contiguous, and then this
             # is no copy
-            return {"side_outputs": (), "decode_input": {
-                "x": _nhwc(x_half).contiguous(), "kernel": weight.detach()}}
-        out: Dict[str, Any] = {"side_outputs": ()}
+            return {"side_outputs": tuple(sides), "decode_input": {
+                "x": _nhwc(x_half).contiguous(),
+                "kernel": weight if self.training else weight.detach()}}
+        out: Dict[str, Any] = {"side_outputs": tuple(sides)}
         deferred = pred.shape[1] == 4 * self.n_head
         if self.task == "semantic":
             out["logits_polyphase" if deferred else "logits"] = _nhwc(pred)
@@ -193,13 +225,26 @@ class DenseDecoder(nn.Module):
             out["orientation"] = pred[..., 3:5]
         return out
 
+    def _encode(self, pred: torch.Tensor) -> torch.Tensor:
+        """The head's output encodings of an NHWC side output: sigmoid
+        center and tanh offset for the instance task, none else."""
+        if self.task != "instance":
+            return pred
+        center = pred[..., 0:1]
+        offset = pred[..., 1:3]
+        parts = [torch.sigmoid(center) if self.sigmoid_for_center else center,
+                 torch.tanh(offset) if self.tanh_for_offset else offset]
+        if self.with_orientation:
+            parts.append(pred[..., 3:5])
+        return torch.cat(parts, dim=-1)
+
 
 class SceneClassificationHead(nn.Module):
     """Scene classifier on the first (global) context branch."""
 
     def __init__(self, cin: int, n_classes: int):
         super().__init__()
-        self.head = nn.Linear(cin, n_classes)
+        self.head = Linear(cin, n_classes)
 
     def forward(self, context_branch: torch.Tensor) -> torch.Tensor:
         return self.head(context_branch.flatten(1))

@@ -5,6 +5,13 @@ branch -> semantic and instance dense decoders and the scene head. The
 input batch holds NHWC 'rgb' (N, H, W, 3) and 'depth' (N, H, W, 1)
 normalized floats; the output dict matches the flax model's key for key,
 with NHWC tensors.
+
+`EMSANet(cfg, ds, train=True)` is the training model: its dense decoders
+carry the side-output heads of multiscale supervision, and in train mode
+(`.train()`) its forward runs with gradients, batch statistics and
+dropout, as the flax model's `train=True` (`emsanet_tpu/models/
+emsanet.py:178-262`). `build_train_model` makes it with float32
+parameters, which its layers cast to `cfg.compute_dtype` at use.
 """
 
 from __future__ import annotations
@@ -32,11 +39,12 @@ _SKIP_CHANNELS = {4: 64, 8: 128, 16: 256, 32: 512}
 
 
 class EMSANet(nn.Module):
-    """Multi-task RGB-D scene analysis network, inference only."""
+    """Multi-task RGB-D scene analysis network."""
 
-    def __init__(self, cfg: ModelConfig, dataset_config: DatasetConfig):
+    def __init__(self, cfg: ModelConfig, dataset_config: DatasetConfig,
+                 train: bool = False):
         super().__init__()
-        cfg = validate_for_port(cfg)
+        cfg = validate_for_port(cfg, train=train)
         self.cfg = cfg
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.encoder = FusedEncoder(cfg)
@@ -70,6 +78,12 @@ class EMSANet(nn.Module):
                 prediction_upsampling=cfg.upsampling_prediction,
                 zero_init_residual=zero_init,
                 head_decode_fusion=cfg.head_decode_fusion,
+                block_dropout_p=getattr(
+                    cfg, f"{task}_decoder_block_dropout_p"),
+                side_outputs=train and bool(
+                    cfg.task_side_output_downscales(task)),
+                fused_training=cfg.fused_training,
+                fused_train_head=cfg.fused_training and cfg.fused_train_head,
                 **extra,
             ))
         if "scene" in cfg.tasks:
@@ -78,8 +92,13 @@ class EMSANet(nn.Module):
                 dataset_config.n_scene_classes_without_void,
             )
 
-    @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        if self.training:
+            return self._forward(batch)
+        with torch.no_grad():
+            return self._forward(batch)
+
+    def _forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         dt = self.compute_dtype
         feats, skips = self.encoder(
             {m: batch[m].to(dt) for m in ("rgb", "depth")})
@@ -114,3 +133,23 @@ def build_model(
     model = model.to(device=dev, dtype=_DTYPES[cfg.compute_dtype],
                      memory_format=torch.channels_last)
     return model.eval()
+
+
+def build_train_model(
+    cfg: ModelConfig,
+    dataset_config: DatasetConfig,
+    device: Optional[str] = None,
+    seed: Optional[int] = 0,
+) -> EMSANet:
+    """The training model on `device` (default 'cuda', which must exist),
+    in train mode, with float32 parameters (cast to `cfg.compute_dtype`
+    at use) and random weights drawn from `seed` (`weights.random_init_`;
+    seed=None keeps the module defaults)."""
+    from emsanet_tpu_torch.weights import random_init_
+
+    dev = resolve_device(device)
+    model = EMSANet(cfg, dataset_config, train=True)
+    if seed is not None:
+        random_init_(model, seed)
+    model = model.to(device=dev, memory_format=torch.channels_last)
+    return model.train()

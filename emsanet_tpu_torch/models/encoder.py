@@ -3,7 +3,9 @@
 Counterpart of `emsanet_tpu/models/encoder.py::FusedEncoder`. Runs both
 backbones stage-wise; after the stem and after every stage the other
 modality is fused into the main branch (SE gates on both, then add).
-Both stems run as ONE launch of the fused stem kernel (`ops/stem.py`).
+At inference both stems run as ONE launch of the fused stem kernel
+(`ops/stem.py`); in training they run unfused, with batch statistics
+(`emsanet_tpu/models/encoder.py:209-220`).
 Returns the per-modality final maps and the skip dict
 {downscale: {'rgb': t, 'depth': t}} at the configured downscales.
 """
@@ -53,7 +55,7 @@ class FusedEncoder(nn.Module):
             stem, stages = make_backbone_stages(
                 getattr(cfg, f"{mod}_encoder_backbone"),
                 getattr(cfg, f"{mod}_encoder_backbone_block"),
-                _MODALITY_CHANNELS[mod],
+                _MODALITY_CHANNELS[mod], cfg.dropout_p, cfg.fused_training,
             )
             setattr(self, f"{mod}_stem", stem)
             for i, st in enumerate(stages):
@@ -73,13 +75,17 @@ class FusedEncoder(nn.Module):
     ) -> Tuple[Dict[str, torch.Tensor], Dict[int, Dict[str, torch.Tensor]]]:
         """inputs: NHWC tensors in the compute dtype."""
         stems = [getattr(self, f"{m}_stem") for m in self.modalities]
-        outs = stem_ops.fused_stems(
-            [inputs[m].contiguous() for m in self.modalities],
-            [s.Conv_0.weight for s in stems],
-            [s.Norm_0.BatchNorm_0.params() for s in stems],
-        )
-        feats = {m: o.permute(0, 3, 1, 2)
-                 for m, o in zip(self.modalities, outs)}
+        if self.training:
+            feats = {m: s(inputs[m].permute(0, 3, 1, 2))
+                     for m, s in zip(self.modalities, stems)}
+        else:
+            outs = stem_ops.fused_stems(
+                [inputs[m].contiguous() for m in self.modalities],
+                [s.Conv_0.weight for s in stems],
+                [s.Norm_0.BatchNorm_0.params() for s in stems],
+            )
+            feats = {m: o.permute(0, 3, 1, 2)
+                     for m, o in zip(self.modalities, outs)}
 
         fused = self.fuse_into
         other = "depth" if fused == "rgb" else "rgb"

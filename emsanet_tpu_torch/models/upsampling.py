@@ -11,7 +11,11 @@ parity-domain output instead of interleaving it, which the semantic
 head's consumer reads as `logits_polyphase`. With `defer_conv`
 (`upsampling.py:137-138`), it returns `(x, depthwise weight)` without
 convolving: postprocessing runs the stage in a kernel
-(`ops/semantic_decode.py`, `ops/instance_head.py`). Tensors are NCHW.
+(`ops/semantic_decode.py`, `ops/instance_head.py`). In train mode the
+nearest + conv form always runs, as in the JAX package without
+`train_polyphase_upsampling`, and with `defer_conv_train`
+(`upsampling.py:109-118`) the stage returns `(x, depthwise weight)` for
+the fused head loss (`ops/semantic_train_head.py`). Tensors are NCHW.
 """
 
 from __future__ import annotations
@@ -41,9 +45,11 @@ def nearest_x2(x: torch.Tensor) -> torch.Tensor:
 def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """`jax.image.resize(..., 'bilinear')`: half-pixel centres, edges
     clamped, and a widened (antialiased) kernel when downsampling, as the
-    PPM's 5x5 branch is at inputs below 160x160 pixels. Computed in f32
-    (the antialiased kernel has no bf16 CPU implementation)."""
-    return F.interpolate(x.float(), size=(height, width), mode="bilinear",
+    PPM's 5x5 branch is at inputs below 160x160 pixels. Computed in f32,
+    or f64 for f64 (the antialiased kernel has no bf16 CPU
+    implementation)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return F.interpolate(x.to(acc), size=(height, width), mode="bilinear",
                          align_corners=False, antialias=True).to(x.dtype)
 
 
@@ -56,11 +62,13 @@ class Upsampling(nn.Module):
     'nearest'."""
 
     def __init__(self, method: str, channels: int,
-                 defer_interleave: bool = False, defer_conv: bool = False):
+                 defer_interleave: bool = False, defer_conv: bool = False,
+                 defer_conv_train: bool = False):
         super().__init__()
         self.method = method
         self.defer_interleave = defer_interleave
         self.defer_conv = defer_conv
+        self.defer_conv_train = defer_conv_train
         if method in ("learned-3x3-zeropad", "learned-3x3"):
             self.depthwise = nn.Conv2d(channels, channels, 3, groups=channels,
                                        bias=False)
@@ -78,7 +86,11 @@ class Upsampling(nn.Module):
         if self.method == "bilinear":
             return resize_bilinear(x, 2 * h, 2 * w)
         weight = self.depthwise.weight
-        if self.method == "learned-3x3-zeropad" and (
+        if self.training:
+            if self.defer_conv_train and self.method == "learned-3x3-zeropad":
+                return x, weight
+            weight = weight.to(x.dtype)
+        elif self.method == "learned-3x3-zeropad" and (
             h * w >= POLYPHASE_MIN_PIXELS
         ):
             if self.defer_conv:

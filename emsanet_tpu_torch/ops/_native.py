@@ -20,14 +20,15 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 SOURCES = ("stem", "nbt1d_chain", "grouping", "segment", "semantic_decode",
-           "instance_head", "plane_interleave")
+           "instance_head", "plane_interleave", "nbt1d_train",
+           "semantic_train_head")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -99,11 +100,14 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def bind(name: str, fn: str, n_args: int, int_args: List[int]):
-    """`lib.fn` with argtypes: void* everywhere except the int positions."""
+def bind(name: str, fn: str, n_args: int, int_args: List[int],
+         float_args: Sequence[int] = ()):
+    """`lib.fn` with argtypes: void* everywhere except the int and float
+    positions."""
     f = getattr(load(name), fn)
     f.argtypes = [
-        ctypes.c_int if i in int_args else ctypes.c_void_p
+        ctypes.c_int if i in int_args
+        else ctypes.c_float if i in float_args else ctypes.c_void_p
         for i in range(n_args)
     ]
     f.restype = ctypes.c_int

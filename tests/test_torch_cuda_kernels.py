@@ -16,6 +16,17 @@ index exact and score 1e-5 relative; bf16 index different on at most
 within one bf16 ulp, score 1e-2 absolute where the index agrees (inputs
 are bf16-representable, so f32 tap products are exact). Instance head:
 f32 1e-5, bf16 2e-2. Plane interleave: bit-exact.
+
+Train kernels (each output's error relative to its largest magnitude;
+the plain versions' backward is autograd of plain PyTorch ops). NBt1D
+pair forward: y bf16 5e-2 / f32 1e-4, sums bf16 1e-3 / f32 1e-4 (a y
+whose f32 sum lands on the other side of a bf16 rounding boundary moves
+by one bf16 ulp; over the few hundred pixels per channel of these shapes
+that reaches 1.2e-4 of the sums; on the flagship's 153600 it stays under
+1e-4, chip_smoke.py); backward: every gradient bf16 5e-2 / f32 1e-3.
+Semantic head loss: loss
+bf16 1e-2 / f32 1e-5 (the kernel rounds the summed polyphase taps to
+bf16, the plain conv each 3x3 tap); dx 5e-2 / 1e-4, dweight 5e-2 / 1e-3.
 """
 
 import numpy as np
@@ -26,9 +37,11 @@ from emsanet_tpu_torch.ops import (
     grouping,
     instance_head,
     nbt1d_chain,
+    nbt1d_train,
     plane_interleave,
     segment_kernels,
     semantic_decode,
+    semantic_train_head,
     stem,
 )
 
@@ -232,3 +245,136 @@ def test_cuda_interleave_planes_matches_plain():
         if g.dtype == torch.float32:
             g, w = g.view(torch.int32), w.view(torch.int32)
         assert torch.equal(g, w), key
+
+
+# ---------------------------------------------------------------------------
+# training kernels
+
+
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _pair_case(seed, shape, dtype):
+    """u, s, t, w31, b31, w13, b13, gy, gsums on the card; u, gy and the
+    weights bf16-representable. The cotangent of the sums adds per pixel
+    about as much as gy, as a BatchNorm's does: far smaller, and bf16 gy
+    would swallow it in the plain autograd but not in the kernel."""
+    rng = np.random.RandomState(seed)
+    c = shape[-1]
+    std = (1.0 / (3 * c)) ** 0.5
+
+    def rep(a):
+        return _t(a.astype(np.float32)).cuda().bfloat16().to(dtype)
+
+    def f32(a):
+        return _t(a.astype(np.float32)).cuda()
+
+    return (rep(rng.randn(*shape)), f32(rng.rand(c) + 0.5),
+            f32(rng.randn(c) * 0.1), rep(rng.randn(3, c, c) * std),
+            f32(rng.randn(c) * 0.1), rep(rng.randn(3, c, c) * std),
+            f32(rng.randn(c) * 0.1), rep(rng.randn(*shape)),
+            f32(rng.randn(2, c) * 0.1))
+
+
+PAIR_SHAPES = [(2, 16, 32, 64), (1, 24, 16, 128), (1, 8, 20, 256),
+               (2, 120, 160, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PAIR_SHAPES)
+@pytest.mark.parametrize("mode", ["plain", "affine"])
+@pytest.mark.parametrize("dtype,tol,stol,btol", [
+    (torch.float32, 1e-4, 1e-4, 1e-3), (torch.bfloat16, 5e-2, 1e-3, 5e-2)])
+def test_cuda_nbt1d_pair_matches_plain(shape, mode, dtype, tol, stol, btol):
+    _need_cuda()
+    u, s, t, w31, b31, w13, b13, gy, gsums = _pair_case(14, shape, dtype)
+    args = (mode, u, s, t, w31, b31, w13, b13)
+    before = (nbt1d_train.pair_fwd.launches, nbt1d_train.pair_bwd.launches)
+    y, sums = nbt1d_train.pair_fwd(*args)
+    wy, wsums = nbt1d_train.pair_fwd_plain(*args)
+    assert y.dtype == dtype and y.shape == u.shape
+    assert _rel(y, wy) <= tol
+    assert _rel(sums, wsums) <= stol
+    got = nbt1d_train.pair_bwd(*args, gy, gsums)
+    want = nbt1d_train.pair_bwd_plain(*args, gy, gsums)
+    assert (nbt1d_train.pair_fwd.launches,
+            nbt1d_train.pair_bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("gu", "gs", "gt", "gw31", "gb31", "gw13", "gb13"),
+                          got, want):
+        assert g.shape == w.shape, name
+        if mode == "plain" and name in ("gs", "gt"):
+            assert float(g.abs().max()) == 0.0, name
+            continue
+        assert _rel(g, w) <= btol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "affine"])
+def test_cuda_nbt1d_pair_autograd_matches_plain_autograd(mode):
+    _need_cuda()
+    u, s, t, w31, b31, w13, b13, gy, gsums = _pair_case(
+        15, (2, 16, 32, 64), torch.float32)
+    leaves = [x.clone().requires_grad_(True)
+              for x in (u, s, t, w31, b31, w13, b13)]
+    y, sums = nbt1d_train.nbt1d_pair(mode, *leaves)
+    ((y * gy).sum() + (sums * gsums).sum()).backward()
+    want = nbt1d_train.pair_bwd_plain(mode, u, s, t, w31, b31, w13, b13, gy,
+                                      gsums)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad is not None
+        if float(w.abs().max()) > 0:
+            assert _rel(leaf.grad, w) <= 1e-3
+
+
+def _loss_case(seed, n, h2, w2, c, dtype):
+    rng = np.random.RandomState(seed)
+    x = _t((rng.randn(n, h2, w2, c) * 2).astype(np.float32))
+    w = _t((rng.randn(c, 1, 3, 3) * 0.3 + 0.1).astype(np.float32))
+    tgt = rng.randint(0, c + 1, (n, 2 * h2, 2 * w2))
+    tgt = np.where(rng.rand(*tgt.shape) < 0.2, 0, tgt).astype(np.int32)
+    cw = _t((rng.rand(c) + 0.5).astype(np.float32))
+    return (x.cuda().bfloat16().to(dtype), w.cuda(), _t(tgt).cuda(),
+            cw.cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 12, 40, 40), (1, 9, 33, 5),
+                                   (1, 5, 7, 64), (2, 60, 80, 40)])
+@pytest.mark.parametrize("ls", [0.0, 0.1])
+@pytest.mark.parametrize("dtype,tol,dxtol,dktol", [
+    (torch.float32, 1e-5, 1e-4, 1e-3), (torch.bfloat16, 1e-2, 5e-2, 5e-2)])
+def test_cuda_semantic_head_loss_matches_plain(shape, ls, dtype, tol, dxtol,
+                                               dktol):
+    _need_cuda()
+    x, w, tgt, cw = _loss_case(16, *shape, dtype)
+    s, wsum = semantic_train_head.head_loss_fwd(x, w, tgt, cw, ls)
+    ws, wwsum = semantic_train_head.head_loss_fwd_plain(x, w, tgt, cw, ls)
+    assert _rel(s / wsum, ws / wwsum) <= tol
+    assert _rel(wsum, wwsum) <= 1e-6
+    gscale = torch.tensor([0.7], device="cuda") / wsum
+    dx, dw = semantic_train_head.head_loss_bwd(x, w, tgt, cw, ls, gscale)
+    wdx, wdw = semantic_train_head.head_loss_bwd_plain(x, w, tgt, cw, ls,
+                                                       gscale)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert _rel(dx, wdx) <= dxtol
+    assert dw.shape == w.shape and _rel(dw, wdw) <= dktol
+
+
+@pytest.mark.cuda
+def test_cuda_semantic_head_loss_autograd_matches_reference():
+    _need_cuda()
+    x, w, tgt, cw = _loss_case(17, 2, 12, 40, 40, torch.float32)
+    xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    loss = semantic_train_head.fused_semantic_head_loss(xl, wl, tgt, cw, 0.1)
+    loss.backward()
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    ref = semantic_train_head.semantic_head_loss_reference(xr, wr, tgt, cw,
+                                                           0.1)
+    ref.backward()
+    assert _rel(loss.detach(), ref.detach()) <= 1e-5
+    assert _rel(xl.grad, xr.grad) <= 1e-4
+    assert _rel(wl.grad, wr.grad) <= 1e-3

@@ -376,10 +376,27 @@ def test_config_refuses_what_is_not_ported(override):
         port_config.flagship_config(**override)
 
 
-def test_training_is_refused():
-    with pytest.raises(port_config.NotPortedError, match="training"):
-        port_config.validate_for_port(port_config.flagship_config(),
-                                      train=True)
+@pytest.mark.parametrize("part,override,what", [
+    ("model", {"train_polyphase_upsampling": True},
+     "train_polyphase_upsampling"),
+    ("model", {"tasks": ("semantic", "instance", "normal")}, "normal"),
+    ("model", {"decoder_megakernel": "on"}, "decoder_megakernel"),
+    ("train", {"n_devices": 2}, "n_devices"),
+    ("data", {"dataset": "nyuv2"}, "dataset 'nyuv2'"),
+])
+def test_training_is_refused(part, override, what):
+    """What the port's training still refuses; the flagship trains."""
+    cfg = port_config.EMSANetConfig(
+        model=port_config.flagship_config(fused_training=True),
+        data=port_config.DataConfig(dataset="synthetic"))
+    port_config.validate_train_for_port(cfg)
+    cfg = port_config.EMSANetConfig(
+        model=port_config.flagship_config(),
+        data=port_config.DataConfig(dataset="synthetic"))
+    for key, value in override.items():
+        setattr(getattr(cfg, part), key, value)
+    with pytest.raises(port_config.NotPortedError, match=what):
+        port_config.validate_train_for_port(cfg)
 
 
 def test_entry_point_without_gpu_raises():
