@@ -12,17 +12,23 @@ Phases (any failure exits non-zero and prints no result):
      random weights from seed 0; raw uint8/uint16 inputs -> device prep ->
      forward -> postprocess) at batch 1 and batch 8, with every launch
      counter set to 0 just before the mode's two frames and read just
-     after; each kernel on the mode's path must have launched. The
-     kernels' inputs are captured on the way.
+     after; each kernel on the mode's path must have launched. With the
+     default decoder_megakernel='auto' the b1 frame runs both decoders'
+     trunks in one decoder_trunk launch, the b8 frame its decoders module
+     by module (chain kernel). The kernels' inputs are captured on the
+     way.
   3. kernels vs plain: every kernel against its plain PyTorch version on
      the captured inputs of every mode, in bf16 and again in f32 (TF32
      off), with the tolerances below.
-  4. outputs: finite values of the expected shapes; a small frame (96x128,
-     R18, f32; no head defers there) and a 128x160 R18 f32 frame in
-     `decode-planes` and in `decode-both` (the heads defer: the final x2
-     stage's input, 64x80, passes the 60*80 polyphase gate) on the card
-     agree with the same frames run by the plain versions on the CPU, on
-     at least 0.99 of the pixels of each postprocessed map. Logged, not
+  4. outputs: finite values of the expected shapes; a small b2 frame
+     (96x128, R18, f32; no head defers there), once with 'auto' (the
+     card takes the trunk kernel, the CPU the unfused decoders) and once
+     with 'on' (the CPU takes the trunk's plain version), and a 128x160
+     R18 f32 frame in `decode-planes` and in `decode-both` (the heads
+     defer: the final x2 stage's input, 64x80, passes the 60*80
+     polyphase gate) on the card agree with the same frames run by the
+     plain versions on the CPU, on at least 0.99 of the pixels of each
+     postprocessed map; each card frame launches the trunk once. Logged, not
      gated: the share of b8 pixels (and of center slots) where the
      `decode*` modes and `interleave` agree. They may legitimately differ:
      the random weights saturate the center heatmap, and its tied
@@ -34,11 +40,17 @@ Phases (any failure exits non-zero and prints no result):
      inputs of `decode-planes` (the mode `emsanet_tpu_torch.bench` picks
      below batch 16); the interleaved variants of the semantic decode and
      instance head kernels on those of `decode` / `decode-both`.
+ 5b. the trunk on vs off (logged, not gated): the decode-planes frame
+     at b1, b2 and b8 with the trunk kernel ('auto' at b1 and b2, 'on'
+     at b8) against 'off': frame ms (median of 5 rounds, the two in
+     alternating order), device busy ms and device kernels per frame
+     under torch.profiler; the trunk kernel's ms, plain ms and bound at
+     b2 and b8 (its b1 numbers are those of phase 5).
   6. profile: each mode's frame at b1 and at b8 under torch.profiler;
      device time by kernel name, the device's busy share of the profiled
      and of the timed frame, and whether ATen's depthwise conv kernel
-     still runs
-     (chiprun_out/chip_smoke_profile.txt).
+     still runs (chip_smoke_profile.txt in OUT_DIR); the device time of
+     each kernel that has a library yardstick beside that call's.
   7. train: the flagship training step (R34-NBt1D, semantic + instance +
      orientation + scene, NYUv2 labels; 640x480, b8, bf16 compute with f32
      parameters, fused_training, multiscale supervision, median-frequency
@@ -64,8 +76,11 @@ varying order); lookup exact; semantic decode f32 index exact and score
 1e-5 relative, bf16 index different on at most 1e-4 of the pixels and
 only where the plain version's top two values are within one bf16 ulp,
 score 1e-2 absolute where the index agrees; instance head f32 1e-5, bf16
-2e-2; plane interleave bit-exact. Train kernels: NBt1D pair forward y
-bf16 5e-2 / f32 1e-4 and sums 1e-4; backward every gradient bf16 5e-2 /
+2e-2; plane interleave bit-exact; decoder trunk bf16 5e-2 (42 convs
+in 3 modules at the flagship; kernel and plain version round at the
+same points, but an f32 sum taken in another order can flip a bf16
+rounding, and the flip carries through the later layers, as in the
+chain), f32 1e-4. Train kernels: NBt1D pair forward y bf16 5e-2 / f32 1e-4 and sums 1e-4; backward every gradient bf16 5e-2 /
 f32 1e-3: the weight and vector gradients relative to the largest sum
 of the magnitudes of the terms they add up (on the main path's data they
 are sums over 153600 pixels that cancel; gb13 feeds the next BatchNorm
@@ -85,7 +100,9 @@ this network moves by ~1e-2 when its input moves by 1e-6
 measure that, not the kernels.
 
 Output: progress lines, the card's name and power limit, one JSON line
-{"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+{"kernels": [...]} (each entry's "ms" at the batch it names: b8, and b1
+for the trunk, which the 'auto' gate runs only there) and, last,
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -127,9 +144,15 @@ KERNELS = (
     ("interleave_planes", "plane_interleave",
      "emsanet_tpu_torch/csrc/plane_interleave.cu",
      "emsanet_tpu/ops/plane_interleave.py:85"),
+    ("decoder_trunk", "decoder_trunk",
+     "emsanet_tpu_torch/csrc/decoder_trunk.cu",
+     "emsanet_tpu/ops/decoder_trunk.py:638"),
 )
+# with the default decoder_megakernel='auto', every mode's b1 frame runs
+# both decoders' trunks in one decoder_trunk launch; at b8 the decoders
+# run their modules through the chain kernel
 COMMON = {"fused_stems", "nbt1d_chain", "group_pixels_argmin",
-          "segment_hist_and_sums", "segment_lookup"}
+          "segment_hist_and_sums", "segment_lookup", "decoder_trunk"}
 PATH_KERNELS = {  # the kernels each mode's frame must launch
     "interleave": COMMON,
     "decode": COMMON | {"semantic_decode"},
@@ -138,6 +161,10 @@ PATH_KERNELS = {  # the kernels each mode's frame must launch
                                "interleave_planes"},
 }
 NEW_KERNELS = {"semantic_decode", "instance_head", "interleave_planes"}
+# the batch whose captured calls give a kernel's "ms": b8, except for the
+# trunk, which the 'auto' gate runs at b1 only
+ENTRY_BATCH = {"decoder_trunk": 1}
+TRUNK_BATCHES = (1, 2, 8)  # the trunk on vs off: 'auto' at b1 / b2, 'on' at b8
 # the training step's kernels: (wrapper, module, source, TPU kernel)
 TRAIN_KERNELS = (
     ("pair_fwd", "nbt1d_train", "emsanet_tpu_torch/csrc/nbt1d_train.cu",
@@ -232,7 +259,7 @@ def kernel_spec(name, args, kwargs, ops_mod):
     import torch
     import torch.nn.functional as F
 
-    stem, chain, grouping, seg, sdec, ihead, pint = ops_mod
+    stem, chain, grouping, seg, sdec, ihead, pint, trunk = ops_mod
     if name == "fused_stems":
         xs, ws, bns = args
         outs_b = sum(x.shape[0] * ((x.shape[1] + 3) // 4)
@@ -315,6 +342,25 @@ def kernel_spec(name, args, kwargs, ops_mod):
         return (lambda: ihead.instance_head(x, weight, enc, interleaved),
                 lambda: plain(x, weight, enc), None,
                 byts, n * c * 4 * h2 * w2 * 12, "float32")
+    if name == "decoder_trunk":
+        con_out, skips, per_module = args
+        n, h, w, _ = con_out.shape
+        d = per_module[0]["cin_w"].shape[0]
+        ops = 0
+        for skip, m in zip(skips, per_module):
+            ci, co = m["cin_w"].shape[-2:]
+            k = m["blk_w31"].shape[1]
+            # conv_in (9 taps), 4K three-tap convs, the 1x1 projection at
+            # 2h x 2w; 2 operations per multiply-add
+            ops += 2 * d * n * h * w * (9 * ci * co + 12 * k * co * co
+                                        + 4 * skip.shape[-1] * co)
+            h, w = 2 * h, 2 * w
+        byts = (_nbytes(con_out, *skips, *(t for m in per_module
+                                           for t in m.values()))
+                + d * n * h * w * co * con_out.element_size())
+        return (lambda: trunk.decoder_trunk(con_out, skips, per_module),
+                lambda: trunk.decoder_trunk_plain(con_out, skips, per_module),
+                None, byts, ops, str(con_out.dtype).split(".")[1])
     if name == "interleave_planes":
         (named,) = args
         words = _words(named)
@@ -397,6 +443,9 @@ def compare(name, args, kwargs, ops_mod, dtype_label):
     elif name == "instance_head":
         tol = 2e-2 if dtype_label == "bf16" else 1e-5
         err = rel_err(got, want)
+    elif name == "decoder_trunk":
+        tol = 5e-2 if dtype_label == "bf16" else 1e-4
+        err = rel_err(got, want)
     elif name == "group_pixels_argmin":
         tol = 0.0
         err = 0.0 if (torch.equal(got[0], want[0])
@@ -425,6 +474,10 @@ def to_f32(name, args):
         return (x.float(), {k: v.float() for k, v in st.items()})
     if name in ("semantic_decode", "instance_head"):
         return (args[0].float(), args[1].float(), *args[2:])
+    if name == "decoder_trunk":
+        con_out, skips, per_module = args
+        return (con_out.float(), [s.float() for s in skips],
+                [{k: v.float() for k, v in m.items()} for m in per_module])
     return args
 
 
@@ -461,6 +514,7 @@ def run() -> int:
         )
         from emsanet_tpu_torch.ops import (
             _native,
+            decoder_trunk,
             grouping,
             instance_head,
             nbt1d_chain,
@@ -478,9 +532,10 @@ def run() -> int:
                "grouping": grouping, "segment_kernels": segment_kernels,
                "semantic_decode": semantic_decode,
                "instance_head": instance_head,
-               "plane_interleave": plane_interleave}
+               "plane_interleave": plane_interleave,
+               "decoder_trunk": decoder_trunk}
     ops_mod = (stem, nbt1d_chain, grouping, segment_kernels, semantic_decode,
-               instance_head, plane_interleave)
+               instance_head, plane_interleave, decoder_trunk)
     os.makedirs(OUT_DIR, exist_ok=True)
     card = gpu_name_and_limit()
     t_start = time.time()
@@ -543,7 +598,8 @@ def run() -> int:
                                                label)
                         key = f"{name}/{label}"
                         errors[key] = max(errors.get(key, 0.0), err)
-                        if (b == 8 and label == "bf16"
+                        if (b == ENTRY_BATCH.get(name, 8)
+                                and label == "bf16"
                                 and mode == TIMING_MODE):
                             max_abs[name] = max(max_abs[name], abs_err)
                 if mode == TIMING_MODE or name in NEW_KERNELS:
@@ -629,15 +685,16 @@ def run() -> int:
                 for key, tot in variants.items():
                     per_b[f"{mode}/b{b}/{key}"] = tot
         detail[name] = per_b
-        b8 = [t for k, t in per_b.items()
-              if k.startswith(f"{TIMING_MODE}/b8/")][0]
+        eb = ENTRY_BATCH.get(name, 8)
+        at = [t for k, t in per_b.items()
+              if k.startswith(f"{TIMING_MODE}/b{eb}/")][0]
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": total[name],
-            "max_abs_err": max_abs[name], "ms": b8["ms"],
-            "plain_ms": b8["plain_ms"],
-            "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
-            "library_ms": b8["library_ms"],
+            "max_abs_err": max_abs[name], "ms": at["ms"],
+            "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"], "batch": eb,
         })
     for name, per_b in detail.items():
         for key, t in per_b.items():
@@ -648,6 +705,10 @@ def run() -> int:
                 log(f"[kernel b1] {name}: ms {t['ms']:.4f} plain "
                     f"{t['plain_ms']:.4f} bound {t['bound_ms']:.4f} calls "
                     f"{t['calls']}")
+
+    # -- 5b. the trunk on vs off (logged, not gated), timed before any
+    # profiler has run in the process -------------------------------------
+    trunk_report = trunk_on_off(torch, frames[TIMING_MODE], ops_mod, card)
 
     # -- 6. profile ----------------------------------------------------------
     busy = {}
@@ -678,6 +739,22 @@ def run() -> int:
                     f"(ms): {top}" if busy_ms > 0 else
                     f"[profile {mode} b{b}] no device time recorded: not "
                     "measured")
+    # the kernels that have a library yardstick, on device time (a
+    # wrapper's time includes its host work): kernel against library
+    # call on the first captured call of the decode-planes b8 frame
+    library_device = {}
+    for name, *_ in KERNELS:
+        calls = captured.get((TIMING_MODE, name, 8))
+        if not calls:
+            continue
+        kfn, _, lfn, *_ = kernel_spec(name, *calls[0], ops_mod)
+        if lfn is None:
+            continue
+        library_device[name] = {"device_ms": device_ms(kfn),
+                                "library_device_ms": device_ms(lfn)}
+        log(f"[device time] {name}: kernel "
+            f"{library_device[name]['device_ms']:.4f} ms, library "
+            f"{library_device[name]['library_device_ms']:.4f} ms")
     # -- 7. train -------------------------------------------------------------
     del frames, captured, results
     torch.cuda.empty_cache()
@@ -688,6 +765,8 @@ def run() -> int:
                    "launches": launches, "errors": errors,
                    "agreement_b8": agreement,
                    "small_frames": small, "profile": busy,
+                   "trunk_on_off": trunk_report,
+                   "library_device": library_device,
                    "train": train_report}, f, indent=1)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(card)
@@ -755,41 +834,160 @@ def _leaves(tree, path=""):
 
 
 def small_frames(torch, build_flagship, make_frame, random_raw_inputs):
-    """Small f32 frames on the card against the same frames on the CPU."""
+    """Small f32 b2 frames on the card against the same frames on the CPU.
+    With 'auto' the card's frames take the decoder trunk kernel and the
+    CPU's the unfused decoders; with 'on' both take the trunk (the CPU
+    through its plain version)."""
+    from emsanet_tpu_torch.ops import decoder_trunk
+
     report = {}
-    for (h, w), mode in (((96, 128), "interleave"),
-                         ((128, 160), "decode-planes"),
-                         ((128, 160), "decode-both")):
+    for (h, w), mode, megakernel in (((96, 128), "interleave", "auto"),
+                                     ((128, 160), "decode-planes", "auto"),
+                                     ((128, 160), "decode-both", "auto"),
+                                     ((96, 128), "interleave", "on")):
         cuda, scfg, sds = build_flagship(h, w, "float32", "resnet18", "cuda",
-                                         seed=1, head_decode_fusion=mode)
+                                         seed=1, head_decode_fusion=mode,
+                                         decoder_megakernel=megakernel)
         cpu, _, _ = build_flagship(h, w, "float32", "resnet18", "cpu",
-                                   seed=1, head_decode_fusion=mode)
+                                   seed=1, head_decode_fusion=mode,
+                                   decoder_megakernel=megakernel)
         sin = random_raw_inputs(2, h, w, seed=3, device="cpu")
         sin_cuda = {k: v.cuda() for k, v in sin.items()}
+        before = decoder_trunk.decoder_trunk.launches
         raw_cuda = dict(_leaves(make_frame(cuda, scfg, sds, False)(sin_cuda)))
+        if decoder_trunk.decoder_trunk.launches != before + 1:
+            raise AssertionError(f"small frame {h}x{w} {mode} "
+                                 f"{megakernel}: the trunk kernel did not "
+                                 "launch once")
+        tag = f"{h}x{w} {mode}" + (" 'on'" if megakernel == "on" else "")
         raw_cpu = dict(_leaves(make_frame(cpu, scfg, sds, False)(sin)))
         worst = max(rel_err(raw_cuda[k].cpu(), v) for k, v in raw_cpu.items())
         if worst > 1e-3:
-            raise AssertionError(f"small frame {h}x{w} {mode}: card vs CPU "
-                                 f"raw error {worst:.3e}")
+            raise AssertionError(f"small frame {tag}: card vs CPU raw error "
+                                 f"{worst:.3e}")
         post_cuda = make_frame(cuda, scfg, sds)(sin_cuda)
         post_cpu = make_frame(cpu, scfg, sds)(sin)
         if sorted(post_cuda) != sorted(post_cpu):
-            raise AssertionError(f"small frame {h}x{w} {mode}: keys differ")
+            raise AssertionError(f"small frame {tag}: keys differ")
         agree = {}
         for key in ("semantic_segmentation_idx", "instance_segmentation",
                     "panoptic_segmentation_deeplab"):
             agree[key] = float((post_cuda[key].cpu() == post_cpu[key])
                                .float().mean())
             if agree[key] < 0.99:
-                raise AssertionError(f"small frame {h}x{w} {mode}: {key} "
-                                     f"agrees on only {agree[key]:.4f} of "
-                                     "the pixels")
-        report[f"{h}x{w}/{mode}"] = {"raw_rel_err": worst, "agree": agree}
-        log(f"[outputs] small frame {h}x{w} {mode}, card vs CPU: raw "
-            f"outputs max rel err {worst:.2e}; postprocessed maps agree on "
+                raise AssertionError(f"small frame {tag}: {key} agrees on "
+                                     f"only {agree[key]:.4f} of the pixels")
+        report[tag] = {"raw_rel_err": worst, "agree": agree}
+        log(f"[outputs] small frame {tag}, card vs CPU: raw outputs max "
+            f"rel err {worst:.2e}; postprocessed maps agree on "
             f"{json.dumps(agree)}")
     return report
+
+
+def trunk_on_off(torch, frame_auto, ops_mod, card):
+    """The decode-planes frame with the decoder trunk kernel ('auto' at b1
+    and b2, 'on' at b8) against 'off', at b1, b2 and b8: frame ms (median
+    of rounds, the two in alternating order), device busy ms and device
+    kernels per frame under torch.profiler, and the trunk kernel's own
+    time beside its plain version and bound at b2 and b8. Logged, not
+    gated: the H100's answer to the reference's MAX_BATCH gate."""
+    from emsanet_tpu_torch.bench import (
+        build_flagship,
+        make_frame,
+        random_raw_inputs,
+        time_cuda,
+    )
+    from emsanet_tpu_torch.ops import decoder_trunk as trunk
+
+    frames = {"auto": frame_auto}
+    for mk in ("on", "off"):
+        model, cfg, ds = build_flagship(480, 640, "bfloat16", "resnet34",
+                                        "cuda", seed=0,
+                                        head_decode_fusion=TIMING_MODE,
+                                        decoder_megakernel=mk)
+        frames[mk] = make_frame(model, cfg, ds)
+    with_trunk = {1: "auto", 2: "auto", 8: "on"}
+    inputs = {b: random_raw_inputs(b, 480, 640, seed=b, device="cuda")
+              for b in TRUNK_BATCHES}
+    for b in TRUNK_BATCHES:
+        for variant, want in ((with_trunk[b], 1), ("off", 0)):
+            before = trunk.decoder_trunk.launches
+            frames[variant](inputs[b])
+            got = trunk.decoder_trunk.launches - before
+            if got != want:
+                raise AssertionError(f"trunk on/off b{b} {variant}: {got} "
+                                     f"trunk launches, expected {want}")
+    torch.cuda.synchronize()
+    rounds = {(b, v): [] for b in TRUNK_BATCHES for v in ("trunk", "off")}
+    for r in range(FRAME_ROUNDS):
+        for b in TRUNK_BATCHES:
+            for v in (("trunk", "off") if r % 2 == 0 else ("off", "trunk")):
+                f = frames[with_trunk[b] if v == "trunk" else "off"]
+                rounds[b, v].append(time_cuda(lambda: f(inputs[b]), 2, 10))
+    report = {"card": card}
+    for b in TRUNK_BATCHES:
+        line = []
+        for v in ("trunk", "off"):
+            f = frames[with_trunk[b] if v == "trunk" else "off"]
+            wall_ms, rows = profile_frame(f, inputs[b])
+            entry = {
+                "frame_ms": statistics.median(rounds[b, v]),
+                "rounds": rounds[b, v],
+                "busy_ms": sum(r[0] for r in rows),
+                "device_kernels": sum(r[1] for r in rows),
+                "trunk_kernel_dev_ms": sum(
+                    r[0] for r in rows if "decoder_trunk_kernel" in r[2]),
+                "profiled_wall_ms": wall_ms,
+            }
+            report[f"b{b}/{v}"] = entry
+            line.append(f"{v} {entry['frame_ms']:.3f} ms "
+                        f"({min(entry['rounds']):.3f}-"
+                        f"{max(entry['rounds']):.3f}), busy "
+                        f"{entry['busy_ms']:.3f} ms, "
+                        f"{entry['device_kernels']} device kernels")
+        log(f"[trunk on/off {TIMING_MODE} b{b}] " + "; ".join(line))
+    spec = [k for k in KERNELS if k[0] == "decoder_trunk"]
+    for b in (2, 8):
+        with Capture({"decoder_trunk": trunk}, spec) as cap:
+            frames[with_trunk[b]](inputs[b])
+        ((args, kwargs),) = cap.calls["decoder_trunk"]
+        kfn, pfn, _, byts, ops, odt = kernel_spec("decoder_trunk", args,
+                                                  kwargs, ops_mod)
+        t = {"ms": time_cuda(kfn, 2, 10), "plain_ms": time_cuda(pfn, 2, 10),
+             "bound_ms": max(byts / PEAK_BYTES, ops / PEAK_OPS[odt]) * 1e3}
+        report[f"kernel_b{b}"] = t
+        log(f"[trunk kernel b{b}] ms {t['ms']:.4f} plain "
+            f"{t['plain_ms']:.4f} bound {t['bound_ms']:.4f}")
+    # the same weights on a 2x2 context at b1: the phases' work is a few
+    # tiles, so this is the kernel's fixed cost (its 41 grid barriers and
+    # one read of the weights)
+    con_out, skips, per_module = args
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tiny = [torch.randn((1, 2 << i, 2 << i, s.shape[-1]), generator=g,
+                        device="cuda").to(s.dtype) for i, s in enumerate(
+                            [con_out] + list(skips))]
+    ms = time_cuda(lambda: trunk.decoder_trunk(tiny[0], tiny[1:], per_module),
+                   2, 10)
+    report["kernel_b1_2x2_context"] = ms
+    log(f"[trunk kernel] fixed cost (2x2 context, b1, flagship weights): "
+        f"ms {ms:.4f}")
+    return report
+
+
+def device_ms(fn, runs=10):
+    """Device milliseconds per call of fn under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e3 / runs
 
 
 def profile_frame(frame, batch):
@@ -1195,7 +1393,7 @@ def train_phase(torch, card):
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max_abs[name], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": tot["bound_by"], "library_ms": None,
+            "bound_by": tot["bound_by"], "library_ms": None, "batch": 8,
         })
     report["kernels"] = detail
     del model, calls, cap

@@ -15,7 +15,11 @@ with_postprocessing)`, as the reference `bench.py:82` picks it:
 'decode-planes' below batch 16, 'decode' from 16 up, 'interleave'
 without postprocessing; `--head-decode-fusion` overrides it. These
 thresholds are the reference's own, measured on a TPU; PERF.md records
-what the H100 shows per mode.
+what the H100 shows per mode. With the config's default
+`decoder_megakernel='auto'`, frames at batch <= `ops.decoder_trunk.
+MAX_BATCH` (2) compute both decoders' trunks in one launch of the
+decoder-trunk kernel; larger batches run the decoders module by module,
+as the reference `bench.py` does with its own default.
 
 `build_flagship`, `random_raw_inputs` and `make_frame` are shared with
 `chip_smoke.py`.
@@ -47,12 +51,13 @@ BASELINE_FPS = 24.5  # BASELINE.md: Jetson AGX Xavier, TensorRT FP16, b1
 def build_flagship(
     height: int = 480, width: int = 640, dtype: str = "bfloat16",
     backbone: str = "resnet34", device: str = "cuda", seed: int = 0,
-    head_decode_fusion: str = "decode",
+    head_decode_fusion: str = "decode", decoder_megakernel: str = "auto",
 ) -> Tuple[EMSANet, ModelConfig, DatasetConfig]:
     cfg = flagship_config(
         input_height=height, input_width=width, compute_dtype=dtype,
         rgb_encoder_backbone=backbone, depth_encoder_backbone=backbone,
         head_decode_fusion=head_decode_fusion,
+        decoder_megakernel=decoder_megakernel,
     )
     ds = get_dataset_config("synthetic")
     return build_model(cfg, ds, device=device, seed=seed), cfg, ds

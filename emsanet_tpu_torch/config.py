@@ -3,8 +3,14 @@
 A copy of the `ModelConfig`, `DataConfig` and `TrainConfig` fields that
 the inference frame and the training step read (counterpart:
 `emsanet_tpu/config.py`). Field names and defaults are the same, except
-`fused_inference` (True: the only inference path ported) and
-`decoder_megakernel` ('off': the decoder megakernel is not ported yet).
+`fused_inference` (True: the only inference path ported).
+`decoder_megakernel` ('auto', 'on' or 'off') decides, as in the
+reference, whether every dense decoder's trunk runs as one call
+(`ops/decoder_trunk.py`): 'auto' where the context output lies on the
+card and the batch is at most `decoder_trunk.MAX_BATCH` (the reference:
+on a TPU), 'on' at any batch and on the CPU too (through the plain
+version, as the reference's interpret mode), 'off' never. Training
+ignores it, as the reference does.
 `EMSANetConfig.validate` applies the reference's post-parse rules that
 training needs (task weighting, learning-rate scaling by batch size / 8,
 forced raw depth). `best_head_decode_fusion` is the reference's mode
@@ -92,7 +98,7 @@ class ModelConfig:
     fused_train_head: bool = True
     train_polyphase_upsampling: bool = False
     head_decode_fusion: str = "decode"
-    decoder_megakernel: str = "off"
+    decoder_megakernel: str = "auto"
 
     @property
     def instance_normalized_offset(self) -> bool:
@@ -232,9 +238,7 @@ def validate_for_port(cfg: ModelConfig, train: bool = False) -> ModelConfig:
             f"head_decode_fusion must be one of {HEAD_DECODE_FUSIONS}, got "
             f"'{cfg.head_decode_fusion}'"
         )
-    if cfg.decoder_megakernel == "on":
-        _refuse("decoder_megakernel='on'")
-    if cfg.decoder_megakernel not in ("off", "auto"):
+    if cfg.decoder_megakernel not in ("off", "on", "auto"):
         raise ValueError(
             f"decoder_megakernel must be 'off', 'on' or 'auto', got "
             f"'{cfg.decoder_megakernel}'"

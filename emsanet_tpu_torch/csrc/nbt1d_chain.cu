@@ -32,7 +32,7 @@
 // Layouts: x, res, out (N, H, W, C) NHWC contiguous; w31, w13 (3, C, C)
 // [tap][c_in][c_out] in the storage type; b31, b13, scale, shift f32 [C].
 
-#include "common.cuh"
+#include "conv_tc.cuh"
 
 namespace emsanet {
 
@@ -165,11 +165,10 @@ int launch_pair(const void* x, const void* w31, const void* b31,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path: each conv of the pair is an implicit GEMM on the tensor cores,
-//   out[p, :] = epilogue(sum_tap x[p + shift(tap), :] @ wt[tap])
-// with M = all N*H*W pixels (images and rows flattened), K = 3 taps x C,
-// N = C. shift(tap) is (tap - 1) rows for the conv3x1 and (tap - 1)
-// columns for the conv1x3; a source pixel outside the image reads 0 (the
+// bf16 path: each conv of the pair is an implicit GEMM on the tensor cores
+// (`mma_conv_tile`, csrc/conv_tc.cuh) with M = all N*H*W pixels (images
+// and rows flattened), K = 3 taps x C, N = C: a 3x1 kernel for the conv3x1,
+// 1x3 for the conv1x3; a source pixel outside the image reads 0 (the
 // per-conv zero padding).
 //
 // Why not the fused pair here: a block that keeps the pair's intermediate
@@ -181,71 +180,12 @@ int launch_pair(const void* x, const void* w31, const void* b31,
 // the b8 120x160 site, a few microseconds against the conv's arithmetic),
 // which mostly stays in the 50 MB L2.
 //
-// Tiling: a block computes BM pixels x 64 output channels with 4 warps
-// (2 x 2, each BM/2 x 32) through mma.sync m16n8k16 (bf16 operands, f32
-// accumulators), fed by ldmatrix from shared memory. Operand tiles (BM x 32
-// of x, 32 x 64 of the weights) stream through a 3-stage ring of cp.async
-// copies, the missing source pixels zero-filled by the copy itself. Rows
-// of the tiles are padded by 16 bytes so that ldmatrix reads are free of
-// bank conflicts. BM is 128, or 64 where that leaves too few blocks to
-// fill the card (the 15x20 sites). The epilogue (bias, folded BN,
-// residual, ReLU) runs on the accumulators and stores bf16 pairs.
+// A block computes BM pixels x 64 output channels; BM is 128, or 64 where
+// that leaves too few blocks to fill the card (the 15x20 sites). The
+// epilogue (bias, folded BN, residual, ReLU) runs on the accumulators and
+// stores bf16 pairs.
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kBK = 32;            // K chunk (input channels of one tap)
-constexpr int kBN = 64;            // output channels per block
-constexpr int kStages = 3;         // cp.async ring depth
-constexpr int kTcThreads = 128;    // 4 warps
-constexpr int kAStride = kBK + 8;  // padded row of an A tile (elements)
-constexpr int kBStride = kBN + 8;  // padded row of a B tile (elements)
-constexpr int kTargetBlocks = 264; // 2 per SM
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kTargetBlocks = 264;  // 2 per SM
 
 // scale/shift/res may be null: y = relu((acc + bias) [* scale + shift]
 // [+ res]). vertical = 1 for the conv3x1, 0 for the conv1x3.
@@ -257,121 +197,13 @@ conv3tap_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
                    const float* __restrict__ shift,
                    const bf16* __restrict__ res, bf16* __restrict__ out,
                    int total, int h, int w, int c, int vertical) {
-  constexpr int kWM = BM / 2;                        // warp tile rows
-  constexpr int kMT = kWM / 16;                      // m16 tiles per warp
-  constexpr int kAChunks = BM * (kBK / 8) / kTcThreads;
-  constexpr int kBChunks = kBK * (kBN / 8) / kTcThreads;
-  __shared__ __align__(128) bf16 a_s[kStages][BM * kAStride];
-  __shared__ __align__(128) bf16 b_s[kStages][kBK * kBStride];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * kBN;
-  const int k_chunks = c / kBK;
-  const int n_iter = 3 * k_chunks;
-
-  // the pixels whose A rows this thread copies: index, row and column
-  int a_p[kAChunks], a_y[kAChunks], a_x[kAChunks];
-#pragma unroll
-  for (int i = 0; i < kAChunks; ++i) {
-    const int p = m0 + (tid + i * kTcThreads) / (kBK / 8);
-    const int rem = p % (h * w);
-    a_p[i] = p;
-    a_y[i] = rem / w;
-    a_x[i] = rem % w;
-  }
-
-  auto load_stage = [&](int stage, int it) {
-    const int tap = it / k_chunks, k0 = (it % k_chunks) * kBK;
-    const int s = tap - 1;
-#pragma unroll
-    for (int i = 0; i < kAChunks; ++i) {
-      const int v = tid + i * kTcThreads;
-      const int r = v / (kBK / 8), q = v % (kBK / 8);
-      bool ok = a_p[i] < total;
-      int src_p = a_p[i];
-      if (vertical) {
-        ok = ok && a_y[i] + s >= 0 && a_y[i] + s < h;
-        src_p += s * w;
-      } else {
-        ok = ok && a_x[i] + s >= 0 && a_x[i] + s < w;
-        src_p += s;
-      }
-      const bf16* src = ok ? x + (size_t)src_p * c + k0 + q * 8 : x;
-      cp_async16(&a_s[stage][r * kAStride + q * 8], src, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      const int v = tid + i * kTcThreads;
-      const int kr = v / (kBN / 8), q = v % (kBN / 8);
-      const bf16* src = wt + ((size_t)tap * c + k0 + kr) * c + n0 + q * 8;
-      cp_async16(&b_s[stage][kr * kBStride + q * 8], src, true);
-    }
-  };
-
-  float acc[kMT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < n_iter) load_stage(st, st);
-    cp_async_commit();
-  }
-  for (int it = 0; it < n_iter; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nxt = it + kStages - 1;
-    if (nxt < n_iter) load_stage(nxt % kStages, nxt);
-    cp_async_commit();
-    const bf16* as = a_s[it % kStages];
-    const bf16* bs = b_s[it % kStages];
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      unsigned af[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-        ldmatrix_x4(af[mt], as + (wm * kWM + mt * 16 + (lane & 15)) * kAStride +
-                                ks + (lane >> 4) * 8);
-      unsigned bfr[4][2];
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        unsigned r[4];
-        ldmatrix_x4_trans(r, bs + (ks + (lane & 15)) * kBStride + wn * 32 +
-                                 np * 16 + (lane >> 4) * 8);
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue: accumulator e of tile (mt, nt) is row g (+8 for e >= 2),
-  // columns 2 * (lane % 4) + (e % 2)
-  const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int p = m0 + wm * kWM + mt * 16 + g + half * 8;
-      if (p >= total) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int ch = n0 + wn * 32 + nt * 8 + tq * 2;
-        float v0 = acc[mt][nt][2 * half] + bias[ch];
-        float v1 = acc[mt][nt][2 * half + 1] + bias[ch + 1];
+  __shared__ ConvTileSmem<BM> sm;
+  mma_conv_tile<BM>(
+      sm, x, total, h, w, c, vertical ? 3 : 1, vertical ? 1 : 3, wt, c,
+      blockIdx.x * BM, blockIdx.y * kBN,
+      [&](int p, int ch, float v0, float v1) {
+        v0 += bias[ch];
+        v1 += bias[ch + 1];
         if (scale != nullptr) {
           v0 = v0 * scale[ch] + shift[ch];
           v1 = v1 * scale[ch + 1] + shift[ch + 1];
@@ -386,8 +218,7 @@ conv3tap_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
         }
         *reinterpret_cast<__nv_bfloat162*>(out + o) =
             __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-      }
-    }
+      });
 }
 
 int launch_conv3tap(const void* x, const void* wt, const void* bias,

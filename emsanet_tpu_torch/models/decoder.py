@@ -186,13 +186,23 @@ class DenseDecoder(nn.Module):
             defer_final_conv_train=(task == "semantic" and fused_train_head))
 
     def forward(self, context_out: torch.Tensor,
-                skips: Dict[int, Dict[str, torch.Tensor]]) -> Dict[str, Any]:
-        x = context_out
+                skips: Dict[int, Dict[str, torch.Tensor]],
+                trunk_features: Optional[torch.Tensor] = None
+                ) -> Dict[str, Any]:
+        """`trunk_features` (inference only): this decoder's trunk output
+        (N, H, W, C) NHWC, computed by the decoder megakernel
+        (`ops/decoder_trunk.py`, wired in models/emsanet.py); the module
+        stack is skipped and only the head runs."""
         sides = []
-        for i, ds in enumerate(self.downsamplings):
-            x, side = getattr(self, f"module{i}")(x, skips.get(ds))
-            if side is not None:
-                sides.append(self._encode(_nhwc(side)))
+        if trunk_features is not None:
+            # channels_last: the NCHW view of the NHWC map is no copy
+            x = trunk_features.permute(0, 3, 1, 2)
+        else:
+            x = context_out
+            for i, ds in enumerate(self.downsamplings):
+                x, side = getattr(self, f"module{i}")(x, skips.get(ds))
+                if side is not None:
+                    sides.append(self._encode(_nhwc(side)))
         if self.task == "instance":
             h = self.head_shared_conv(x)
             cpt = self.n_channels_per_task

@@ -33,6 +33,7 @@ from emsanet_tpu_torch.models.decoder import (
     SceneClassificationHead,
 )
 from emsanet_tpu_torch.models.encoder import FusedEncoder
+from emsanet_tpu_torch.ops import decoder_trunk as trunk_ops
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _SKIP_CHANNELS = {4: 64, 8: 128, 16: 256, 32: 512}
@@ -103,14 +104,107 @@ class EMSANet(nn.Module):
         feats, skips = self.encoder(
             {m: batch[m].to(dt) for m in ("rgb", "depth")})
         con_out, con_context = self.context_module(feats["rgb"])
+        # the decoder megakernel: one call computes every dense decoder's
+        # module stack; each decoder then runs only its head
+        trunk: Dict[str, torch.Tensor] = {}
+        if not self.training and self.cfg.decoder_megakernel != "off":
+            trunk = self._trunk_megakernel(con_out, skips)
         outputs: Dict[str, Any] = {}
         for task in ("semantic", "instance"):
             if task in self.cfg.tasks:
                 outputs[task] = getattr(self, f"{task}_decoder")(
-                    con_out, skips)
+                    con_out, skips, trunk.get(task))
         if "scene" in self.cfg.tasks:
             outputs["scene"] = {"logits": self.scene_decoder(con_context[0])}
         return outputs
+
+    def _trunk_megakernel(
+        self, con_out: torch.Tensor,
+        skips: Dict[int, Dict[str, torch.Tensor]],
+    ) -> Dict[str, torch.Tensor]:
+        """Every eligible dense decoder's trunk in ONE call
+        (`ops/decoder_trunk.py`), as the reference's
+        `EMSANet._trunk_megakernel` (`emsanet_tpu/models/emsanet.py:264`).
+
+        Returns {} (the decoders run their own modules) unless the dense
+        decoders share the flagship trunk topology and the shapes pass
+        `trunk_supported`. 'auto' engages only on the card at batch <=
+        MAX_BATCH; 'on' at any batch, on the CPU through the plain
+        version."""
+        cfg = self.cfg
+        tasks = [t for t in ("semantic", "instance") if t in cfg.tasks
+                 and getattr(cfg, f"{t}_decoder") == "emsanet"]
+        if not tasks:
+            return {}
+
+        def sig(t):
+            return tuple(getattr(cfg, f"{t}_{field}") for field in (
+                "decoder_n_channels", "decoder_downsamplings",
+                "decoder_block", "decoder_n_blocks",
+                "encoder_decoder_fusion", "decoder_upsampling"))
+
+        if any(sig(t) != sig(tasks[0]) for t in tasks[1:]):
+            return {}
+        n_channels, downsamplings, block, n_blocks, fusion, upsampling = (
+            sig(tasks[0]))
+        if (block != "nonbottleneck1d"
+                or upsampling != "learned-3x3-zeropad"
+                or cfg.decoder_normalization != "batchnorm"
+                or cfg.activation != "relu"
+                or not fusion.startswith("add-")):
+            return {}
+        modality = fusion.split("-", 1)[1]
+        if modality not in ("rgb", "depth"):
+            return {}
+        skip_list = []
+        for ds in downsamplings:
+            sd = skips.get(ds)
+            if sd is None or modality not in sd:
+                return {}
+            skip_list.append(sd[modality])
+        # the kernel always applies the 1x1 skip projection (the decoder
+        # skips it when the channels already match)
+        if any(s.shape[1] == c for s, c in zip(skip_list, n_channels)):
+            return {}
+        n, c0, h0, w0 = con_out.shape
+        if cfg.decoder_megakernel == "auto" and not con_out.is_cuda:
+            return {}
+        if not trunk_ops.trunk_supported(
+            n, h0, w0, n_channels, c0, [s.shape[1] for s in skip_list],
+            n_blocks,
+            max_batch=n if cfg.decoder_megakernel == "on" else None,
+        ):
+            return {}
+        decoders = [getattr(self, f"{t}_decoder") for t in tasks]
+        out = trunk_ops.decoder_trunk(
+            _nhwc(con_out), [_nhwc(s) for s in skip_list],
+            _cached_trunk_params(decoders, con_out.dtype))
+        return {t: out[i] for i, t in enumerate(tasks)}
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> contiguous NHWC; no copy for a channels_last tensor."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def _cached_trunk_params(decoders, dtype: torch.dtype):
+    """`stack_trunk_params`, kept on the first decoder between calls.
+
+    Stacking and folding is ~40 small ops per decoder module; on every
+    frame their launches would cost more than the kernel saves. The key
+    holds every trunk tensor's storage address and in-place version
+    counter (as `layers._cached_chain_params`), so loading new weights or
+    moving the model rebuilds it.
+    """
+    mods = [getattr(dec, f"module{i}") for dec in decoders
+            for i in range(dec.n_modules)]
+    tensors = [t for m in mods for t in (*m.parameters(), *m.buffers())]
+    key = (dtype, tuple((t.data_ptr(), t._version) for t in tensors))
+    cached = getattr(decoders[0], "_trunk_cache", None)
+    if cached is None or cached[0] != key:
+        cached = (key, trunk_ops.stack_trunk_params(decoders, dtype))
+        decoders[0]._trunk_cache = cached
+    return cached[1]
 
 
 def build_model(

@@ -3,9 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface. It is compiled with
 `nvcc -gencode arch=compute_90a,code=sm_90a` into
 `build/kernels/lib<name>-<hash>.so` inside the checkout at first use and
-loaded with `ctypes`. The hash covers the source and the flags, so an
-edited source is rebuilt. Nothing is compiled when a module is
-imported: the CPU paths never reach this file.
+loaded with `ctypes`. The hash covers the source, every header of `csrc/`
+and the flags, so an edited source or header is rebuilt. Nothing is
+compiled when a module is imported: the CPU paths never reach this file.
 
 `build_all()` starts one `nvcc` per source, all at once, and waits for
 them; `load(name)` builds one source if it is missing.
@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 SOURCES = ("stem", "nbt1d_chain", "grouping", "segment", "semantic_decode",
            "instance_head", "plane_interleave", "nbt1d_train",
-           "semantic_train_head")
+           "semantic_train_head", "decoder_trunk")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -50,10 +50,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    common = (CSRC / "common.cuh").read_bytes()
+    # every header counts, so an edit to one rebuilds each source
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src + common + " ".join(NVCC_FLAGS).encode()
+        (CSRC / f"{name}.cu").read_bytes() + headers
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -15,7 +15,12 @@ index exact and score 1e-5 relative; bf16 index different on at most
 1e-4 of the pixels and only where the plain version's top two values are
 within one bf16 ulp, score 1e-2 absolute where the index agrees (inputs
 are bf16-representable, so f32 tap products are exact). Instance head:
-f32 1e-5, bf16 2e-2. Plane interleave: bit-exact.
+f32 1e-5, bf16 2e-2. Plane interleave: bit-exact. Decoder trunk (three
+modules of conv_in, K NBt1D blocks, x2 upsample and skip fusion; 2 + 4K
+convs each): f32 1e-4, bf16 5e-2 (kernel and plain version round at the
+same points, but an f32 sum in another order can land on the other side
+of a bf16 rounding boundary, and each module carries such a one-ulp flip
+through its 2 + 4K layers, as the chain's bound).
 
 Train kernels (each output's error relative to its largest magnitude;
 the plain versions' backward is autograd of plain PyTorch ops). NBt1D
@@ -34,6 +39,7 @@ import pytest
 import torch
 
 from emsanet_tpu_torch.ops import (
+    decoder_trunk,
     grouping,
     instance_head,
     nbt1d_chain,
@@ -245,6 +251,69 @@ def test_cuda_interleave_planes_matches_plain():
         if g.dtype == torch.float32:
             g, w = g.view(torch.int32), w.view(torch.int32)
         assert torch.equal(g, w), key
+
+
+def _trunk_case(seed, n_dec, n, h0, w0, c0, chans, skip_chans, k, dtype):
+    """Context output, skips and stacked parameters of `decoder_trunk`
+    (ops/decoder_trunk.py layout) on the card, weights scaled so that the
+    maps stay of order 1 through the modules."""
+    rng = np.random.RandomState(seed)
+
+    def draw(shape, std):
+        return _t((rng.randn(n_dec, *shape) * std).astype(np.float32)).cuda()
+
+    def uniform(shape, lo, hi):
+        return _t(rng.uniform(lo, hi, (n_dec, *shape)).astype(
+            np.float32)).cuda()
+
+    ctx = _t(rng.randn(n, h0, w0, c0).astype(np.float32)).cuda().to(dtype)
+    skips, per_module = [], []
+    h, w, c_in = h0, w0, c0
+    for c, cs in zip(chans, skip_chans):
+        h, w = 2 * h, 2 * w
+        skips.append(_t(rng.randn(n, h, w, cs).astype(np.float32)).cuda()
+                     .to(dtype))
+        bn_scale = uniform((k, 2, c), 0.5, 1.5)
+        bn_scale[:, :, 1] *= 0.2  # the residual branch's last norm
+        ups = uniform((4, 4, c), 0.0, 0.5)
+        per_module.append({
+            "cin_w": draw((3, 3, c_in, c), (9 * c_in) ** -0.5).to(dtype),
+            "cin_s": uniform((c,), 0.5, 1.5), "cin_t": draw((c,), 0.1),
+            "blk_w31": draw((k, 2, 3, c, c), (3 * c) ** -0.5).to(dtype),
+            "blk_w13": draw((k, 2, 3, c, c), (3 * c) ** -0.5).to(dtype),
+            "blk_b31": draw((k, 2, c), 0.1), "blk_b13": draw((k, 2, c), 0.1),
+            "blk_bn_scale": bn_scale, "blk_bn_shift": draw((k, 2, c), 0.1),
+            "ups": ups,
+            "proj_w": draw((cs, c), cs ** -0.5).to(dtype),
+            "proj_s": uniform((c,), 0.5, 1.5), "proj_t": draw((c,), 0.1),
+        })
+        c_in = c
+    return ctx, skips, per_module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # small: D 2, b2, a 2x5 context, K 2 (C_s 8: a K chunk of one 8-wide
+    # channel group, zero-filled past it)
+    (2, 2, 2, 5, 64, (128, 64, 64), (32, 16, 8), 2),
+    # the flagship at b1: 15x20x512 context, skips 256 / 128 / 64, K 3
+    (2, 1, 15, 20, 512, (512, 256, 128), (256, 128, 64), 3),
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_cuda_decoder_trunk_matches_plain(case, dtype, tol):
+    _need_cuda()
+    ctx, skips, per_module = _trunk_case(18, *case, dtype)
+    before = decoder_trunk.decoder_trunk.launches
+    got = decoder_trunk.decoder_trunk(ctx, skips, per_module)
+    assert decoder_trunk.decoder_trunk.launches == before + 1
+    want = decoder_trunk.decoder_trunk_plain(ctx, skips, per_module)
+    torch.cuda.synchronize()
+    n_dec, n, h0, w0, _, chans = case[:6]
+    assert got.dtype == dtype
+    assert tuple(got.shape) == (n_dec, n, 8 * h0, 8 * w0, chans[-1])
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= tol
 
 
 # ---------------------------------------------------------------------------

@@ -365,7 +365,7 @@ def test_weight_map_fails_loudly():
 
 
 @pytest.mark.parametrize("override", [
-    {"decoder_megakernel": "on"},
+    {"rgb_encoder_backbone": "resnet50"},
     {"tasks": ("semantic", "instance", "normal")},
     {"semantic_decoder": "segformermlp"},
     {"input_modalities": ("rgbd",)},
@@ -380,7 +380,7 @@ def test_config_refuses_what_is_not_ported(override):
     ("model", {"train_polyphase_upsampling": True},
      "train_polyphase_upsampling"),
     ("model", {"tasks": ("semantic", "instance", "normal")}, "normal"),
-    ("model", {"decoder_megakernel": "on"}, "decoder_megakernel"),
+    ("model", {"rgb_encoder_backbone": "resnet50"}, "resnet50"),
     ("train", {"n_devices": 2}, "n_devices"),
     ("data", {"dataset": "nyuv2"}, "dataset 'nyuv2'"),
 ])
