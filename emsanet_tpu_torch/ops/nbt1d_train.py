@@ -11,8 +11,9 @@ compute dtype, and `sums` = [sum y, sum y^2] per channel in f32, taken
 from the rounded y: the BatchNorm batch statistics of the pair's output.
 
 `nbt1d_pair` is a `torch.autograd.Function` over two hand-written CUDA
-kernels, `csrc/nbt1d_train.cu` (`pair_fwd`, `pair_bwd`); on CPU tensors it
-runs `pair_fwd_plain`, PyTorch ops differentiated by autograd
+kernels, `csrc/nbt1d_train.cu` (`pair_fwd`, `pair_bwd`): in bf16 on the
+tensor cores, in f32 on the CUDA cores. On CPU tensors it runs
+`pair_fwd_plain`, PyTorch ops differentiated by autograd
 (`pair_bwd_plain` is that gradient). Tensors are NHWC: u, y (N, H, W, C)
 in the compute dtype; w31, w13 (3, C_in, C_out); s, t, b31, b13 (C) f32.
 
@@ -133,17 +134,33 @@ def _f32(*vs):
     return [v.detach().float().contiguous() for v in vs]
 
 
+def _workspace(fn: str, dt: torch.dtype, n: int, h: int, w: int, c: int,
+               device) -> torch.Tensor:
+    """The kernels' f32 scratch for one call (partial sums)."""
+    size = _native.bind("nbt1d_train", fn, 5, int_args=[0, 1, 2, 3, 4])(
+        int(dt == torch.bfloat16), n, h, w, c)
+    if size < 0:  # the bf16 kernels cannot be resident on this card
+        _native.check(-size, fn)
+    return torch.empty(size, device=device, dtype=torch.float32)
+
+
+def _aligned(*ts):
+    """The bf16 kernels copy 16-byte pieces: every operand must start on a
+    16-byte boundary."""
+    for x in ts:
+        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError("nbt1d_pair: operands must be 16-byte aligned")
+
+
 def pair_fwd(mode: str, u, s, t, w31, b31, w13, b13):
     """The forward kernel: (y, sums)."""
     n, h, w, c = _check(mode, u, (s, t, b31, b13), (w31, w13))
     dt = u.dtype
     s, t, b31, b13 = _f32(s, t, b31, b13)
     w31, w13 = (x.detach().to(dt).contiguous() for x in (w31, w13))
-    fn_ws = _native.bind("nbt1d_train", "nbt1d_train_fwd_workspace", 4,
-                         int_args=[0, 1, 2, 3])
-    work = torch.empty(fn_ws(n, h, w, c), device=u.device,
-                       dtype=torch.float32)
+    work = _workspace("nbt1d_train_fwd_workspace", dt, n, h, w, c, u.device)
     y = torch.empty_like(u)
+    _aligned(u, w31, w13, y)
     sums = torch.empty((2, c), device=u.device, dtype=torch.float32)
     fn = _native.bind("nbt1d_train", "nbt1d_train_fwd_launch", 17,
                       int_args=[0, 1, 2, 3, 4, 5])
@@ -159,7 +176,9 @@ def pair_fwd(mode: str, u, s, t, w31, b31, w13, b13):
 def pair_bwd(mode: str, u, s, t, w31, b31, w13, b13, gy, gsums):
     """The backward kernels: (gu, gs, gt, gw31, gb31, gw13, gb13), the
     vectors and weight gradients in f32. The intermediate gradients dy
-    and da stay f32 (the TPU kernel rounds them for its matrix unit)."""
+    and da are kept in the compute dtype: in bf16 they are rounded before
+    the tensor cores take them, as the TPU kernel rounds them for its
+    matrix unit."""
     n, h, w, c = _check(mode, u, (s, t, b31, b13), (w31, w13))
     dt = u.dtype
     s, t, b31, b13 = _f32(s, t, b31, b13)
@@ -171,14 +190,12 @@ def pair_bwd(mode: str, u, s, t, w31, b31, w13, b13, gy, gsums):
     # the transposed convs read the weights tap-reversed, (C_out, C_in)
     w31t = w31.flip(0).transpose(1, 2).contiguous()
     w13t = w13.flip(0).transpose(1, 2).contiguous()
-    fn_ws = _native.bind("nbt1d_train", "nbt1d_train_bwd_workspace", 4,
-                         int_args=[0, 1, 2, 3])
-    work = torch.empty(fn_ws(n, h, w, c), device=u.device,
-                       dtype=torch.float32)
+    work = _workspace("nbt1d_train_bwd_workspace", dt, n, h, w, c, u.device)
     a_act = torch.empty_like(u)  # the recomputed intermediate
     g_act = torch.empty((2,) + tuple(u.shape), device=u.device,
-                        dtype=torch.float32)  # dy, da
+                        dtype=dt)  # dy, da
     gu = torch.empty_like(u)
+    _aligned(u, gy, w31, w13, w31t, w13t, a_act, g_act, gu)
     gvec = torch.empty((4, c), device=u.device, dtype=torch.float32)
     gw31 = torch.empty((3, c, c), device=u.device, dtype=torch.float32)
     gw13 = torch.empty_like(gw31)

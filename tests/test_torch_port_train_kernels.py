@@ -260,3 +260,31 @@ def test_taps_gradient_maps_back_to_the_3x3_weight():
     (taps * g).sum().backward()
     got = semantic_train_head.taps_grad_to_weight(g)
     assert _rel(got.numpy(), w.grad.numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("mode", ["plain", "affine"])
+def test_pair_bf16_backward_rounding_within_card_bound(mode):
+    """bf16: the Pallas pair backward (interpret mode), which rounds dy and
+    da to bf16 before its matrix unit, against the port's bf16 plain
+    version, which keeps them f32. Every gradient agrees to within 5e-2 of
+    its largest magnitude, the bound the card's bf16 kernel (which rounds
+    as the TPU kernel does) is held to against the plain version
+    (chip_smoke.py, tests/test_torch_cuda_kernels.py); measured <= 5.3e-3."""
+    shape = (2, 16, 32, 64)
+    p = _pair_inputs(21 + len(mode), shape)
+    rep = {k: np.asarray(jnp.asarray(p[k], jnp.bfloat16), np.float32)
+           for k in ("u", "w31", "w13", "gy")}  # bf16-representable
+    jb = {k: jnp.asarray(v, jnp.bfloat16) for k, v in rep.items()}
+    jg = jax_pair._pair_bwd(jb["u"], p["s"], p["t"], jb["w31"], p["b31"],
+                            jb["w13"], p["b13"], jb["gy"], p["gsums"],
+                            mode=mode, interpret=True)
+    pg = nbt1d_train.pair_bwd_plain(
+        mode, _t(rep["u"]).bfloat16(), _t(p["s"]), _t(p["t"]),
+        _t(rep["w31"]), _t(p["b31"]), _t(rep["w13"]), _t(p["b13"]),
+        _t(rep["gy"]).bfloat16(), _t(p["gsums"]))
+    for name, want, got in zip(NAMES, jg, pg):
+        if mode == "plain" and name in ("s", "t"):
+            assert float(got.abs().max()) == 0.0
+            continue
+        assert _rel(got.float().numpy(), np.asarray(want, np.float32)) \
+            <= 5e-2, name
