@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. build: compile every kernel of `emsanet_tpu_torch/csrc` (one nvcc per
-     source, all at once).
+     source, all at once); `ptxas` must give both instantiations of the
+     head-loss backward kernel a 0-byte stack frame.
   2. main path, per head mode (`interleave`, `decode`, `decode-both`,
      `decode-planes`): the flagship frame (R34-NBt1D dual encoder,
      semantic + instance + orientation + scene, panoptic; 640x480, bf16,
@@ -49,8 +50,16 @@ Phases (any failure exits non-zero and prints no result):
   6. profile: each mode's frame at b1 and at b8 under torch.profiler;
      device time by kernel name, the device's busy share of the profiled
      and of the timed frame, and whether ATen's depthwise conv kernel
-     still runs (chip_smoke_profile.txt in OUT_DIR); the device time of
-     each kernel that has a library yardstick beside that call's.
+     still runs (chip_smoke_profile.txt in OUT_DIR); every profiled frame
+     must run the chain's wgmma kernels (the C = 64 and 128 pairs and the
+     wider sites' conv) and not the first design's `conv3tap_tc_kernel`; the
+     device time of each kernel that has a library yardstick beside that
+     call's.
+ 6b. chain sites (logged): one line per chain call of the decode-planes
+     b1 and b8 frames: C, map, batch, blocks, pair launches, wrapper and
+     device ms, bound, TFLOP/s, and cuDNN's convs alone (F.conv2d 3x1
+     then 1x3, channels_last bf16, no epilogue; a yardstick the port
+     never calls). Gated: each b1 call repeats bit for bit.
   7. train: the flagship training step (R34-NBt1D, semantic + instance +
      orientation + scene, NYUv2 labels; 640x480, b8, bf16 compute with f32
      parameters, fused_training, multiscale supervision, median-frequency
@@ -62,7 +71,10 @@ Phases (any failure exits non-zero and prints no result):
      kernels 12 times), every loss be finite and the last total below
      the first. The kernels' inputs of the first step are captured and
      each train kernel is held against its plain version on them, in
-     bf16 and in f32 (TF32 off). A 96x128 R18 f32 b4 step (dropout 0,
+     bf16 and in f32 (TF32 off); the head-loss backward must repeat bit
+     for bit. The model starts from the reference's initialization
+     (`weights.reference_init_`), as `python -m emsanet_tpu_torch.train`
+     does. A 96x128 R18 f32 b4 step (dropout 0,
      every NBt1D tail through the pairs) runs on the card and on the CPU
      from the same weights and batch. Timing: the b8 step
      (median and range of rounds, CUDA events), its device busy share
@@ -194,6 +206,12 @@ PAIR_CALLS_PER_STEP = 12
 PAIR_DEVICE_KERNELS = {"pair_fwd": ("pair_fwd_tc",),
                        "pair_bwd": ("pair_bwd_dy_tc", "pair_bwd_du_tc",
                                     "pair_wgrad_tc")}
+# the bf16 chain's device kernels (csrc/nbt1d_chain.cu): the C = 64 and 128
+# pairs and the wgmma conv of the wider sites must run in every profiled
+# frame, the first design's mma.sync conv in none
+CHAIN_DEVICE_KERNELS = ("nbt1d_pair64_kernel", "nbt1d_pair128_kernel",
+                        "conv3tap_wgmma_kernel")
+OLD_CHAIN_KERNEL = "conv3tap_tc_kernel"
 
 
 def log(msg: str) -> None:
@@ -559,6 +577,15 @@ def run() -> int:
             f.write(f"== {src}\n{text}\n")
     log(f"[build] {len(_native.SOURCES)} kernel sources in "
         f"{time.time() - t0:.1f} s")
+    if logs["semantic_train_head"]:  # empty: built by an earlier run
+        frames_b = stack_frames(logs["semantic_train_head"],
+                                "head_loss_bwd_kernel")
+        log(f"[build] ptxas stack frame of head_loss_bwd_kernel (bf16, f32):"
+            f" {frames_b} bytes")
+        if len(frames_b) != 2 or any(frames_b):
+            raise AssertionError(f"head_loss_bwd_kernel: stack frames "
+                                 f"{frames_b}, expected 0 bytes for both "
+                                 "instantiations")
 
     # -- 2. main path, 3. kernels vs plain: mode by mode --------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -735,6 +762,8 @@ def run() -> int:
                                         "busy_ms": busy_ms,
                                         "depthwise_ms": depthwise,
                                         "frame_ms": frame_ms[mode][b]}
+                if busy_ms > 0:
+                    check_chain_kernels(rows, f"{mode} b{b}")
                 f.write(f"{mode} b{b} frame under torch.profiler: wall "
                         f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
                         f"ATen conv_depthwise2d {depthwise:.3f} ms\n")
@@ -766,6 +795,7 @@ def run() -> int:
         log(f"[device time] {name}: kernel "
             f"{library_device[name]['device_ms']:.4f} ms, library "
             f"{library_device[name]['library_device_ms']:.4f} ms")
+    chain_report = chain_sites(torch, captured, ops_mod, card)
     # -- 7. train -------------------------------------------------------------
     del frames, captured, results
     torch.cuda.empty_cache()
@@ -778,6 +808,7 @@ def run() -> int:
                    "small_frames": small, "profile": busy,
                    "trunk_on_off": trunk_report,
                    "library_device": library_device,
+                   "chain_sites": chain_report,
                    "train": train_report}, f, indent=1)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(card)
@@ -982,6 +1013,102 @@ def trunk_on_off(torch, frame_auto, ops_mod, card):
     report["kernel_b1_2x2_context"] = ms
     log(f"[trunk kernel] fixed cost (2x2 context, b1, flagship weights): "
         f"ms {ms:.4f}")
+    return report
+
+
+def stack_frames(build_log, kernel):
+    """The `ptxas -v` stack frame sizes of each instantiation of kernel."""
+    out, lines = [], build_log.splitlines()
+    for i, line in enumerate(lines[:-1]):
+        if "Function properties for" in line and kernel in line:
+            out.append(int(lines[i + 1].split("bytes stack frame")[0]))
+    return out
+
+
+def check_chain_kernels(rows, where):
+    """A profiled bf16 frame ran the chain's wgmma kernels and not the
+    first design's mma.sync conv."""
+    names = [r[2] for r in rows]
+    for k in CHAIN_DEVICE_KERNELS:
+        if not any(k in n for n in names):
+            raise AssertionError(f"profiled frame {where}: chain kernel {k} "
+                                 "did not run")
+    if any(OLD_CHAIN_KERNEL in n for n in names):
+        raise AssertionError(f"profiled frame {where}: {OLD_CHAIN_KERNEL} "
+                             "ran")
+
+
+def cudnn_chain(torch, x, st):
+    """cuDNN's convs of the chain alone (F.conv2d 3x1 then 1x3 per pair,
+    channels_last, in x's dtype), without the pairs' bias, BatchNorm,
+    residual and ReLU: a yardstick for the chain's convs, never the
+    port's path."""
+    import torch.nn.functional as F
+
+    xc = x.permute(0, 3, 1, 2)  # NHWC memory: channels_last
+    k = st["w31"].shape[0]
+    ws = [(st["w31"][b, i].permute(2, 1, 0)[..., None].to(x.dtype)
+           .contiguous(memory_format=torch.channels_last),
+           st["w13"][b, i].permute(2, 1, 0)[:, :, None].to(x.dtype)
+           .contiguous(memory_format=torch.channels_last))
+          for b in range(k) for i in range(2)]
+
+    def run():
+        y = xc
+        for w31, w13 in ws:
+            y = F.conv2d(F.conv2d(y, w31, padding=(1, 0)), w13,
+                         padding=(0, 1))
+        return y
+
+    return run
+
+
+def chain_sites(torch, captured, ops_mod, card):
+    """Per chain site of the decode-planes b1 and b8 frames (logged): C,
+    HxW, batch, blocks, pair launches, wrapper and device ms, bound and
+    what sets it, TFLOP/s of the device time, and cuDNN's convs alone as
+    a yardstick. Gated: the b1 calls repeat bit for bit."""
+    from emsanet_tpu_torch.bench import time_cuda
+
+    report = []
+    for b in BATCHES:
+        for args, kwargs in captured.get((TIMING_MODE, "nbt1d_chain", b), []):
+            kfn, _, _, byts, ops, odt = kernel_spec("nbt1d_chain", args,
+                                                   kwargs, ops_mod)
+            x, st = args
+            n, h, w, c = x.shape
+            k = int(st["w31"].shape[0])
+            if b == 1:
+                first, again = kfn(), kfn()
+                torch.cuda.synchronize()
+                if not torch.equal(first, again):
+                    raise AssertionError(f"nbt1d_chain b1 {h}x{w} C={c}: "
+                                         "two calls differ")
+            t_bytes, t_ops = byts / PEAK_BYTES * 1e3, ops / PEAK_OPS[odt] * 1e3
+            dev = device_ms(kfn)
+            site = {
+                "c": c, "hw": f"{h}x{w}", "batch": n, "blocks": k,
+                "launches": 2 * k, "ms": time_cuda(kfn, 2, 10),
+                "device_ms": dev, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "tflops_device": ops / dev / 1e9 if dev > 0 else None,
+                "cudnn_ms": time_cuda(cudnn_chain(torch, x, st), 2, 10),
+            }
+            report.append(site)
+            log(f"[chain site] C={c} {h}x{w} b{n} K={k}: "
+                f"{site['launches']} pair launches, ms {site['ms']:.4f}, "
+                f"device {dev:.4f}, bound {site['bound_ms']:.4f} "
+                f"({site['bound_by']}), "
+                + (f"{site['tflops_device']:.1f} TFLOP/s device, "
+                   if dev > 0 else "device time not measured, ")
+                + f"cuDNN convs alone {site['cudnn_ms']:.4f} ms (yardstick)")
+    for b in BATCHES:
+        sites = [r for r in report if r["batch"] == b]
+        log(f"[chain] b{b} frame: wrapper ms "
+            f"{sum(r['ms'] for r in sites):.4f}, device ms "
+            f"{sum(r['device_ms'] for r in sites):.4f}, bound "
+            f"{sum(r['bound_ms'] for r in sites):.4f}, cuDNN convs alone "
+            f"{sum(r['cudnn_ms'] for r in sites):.4f}; {card}")
     return report
 
 
@@ -1334,11 +1461,21 @@ def train_phase(torch, card):
         f"{TRAIN_STEPS - 1} {totals[-1]:.5f}: lower")
     report.update(launches=launches, total_loss=totals)
 
-    # (b) each train kernel against its plain version, bf16 then f32
+    # (b) each train kernel against its plain version, bf16 then f32; the
+    # head-loss backward repeats bit for bit
     errors, max_abs, max_rel = {}, {}, {}
     for name, *_ in TRAIN_KERNELS:
         for args, _ in calls[name]:
             for label, a in (("bf16", args), ("f32", _train_f32(name, args))):
+                if name == "head_loss_bwd":
+                    with torch.no_grad():
+                        first = hm.head_loss_bwd(*a)
+                        again = hm.head_loss_bwd(*a)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(f, g) for f, g in zip(first,
+                                                                 again)):
+                        raise AssertionError(f"head_loss_bwd ({label}): two "
+                                             "calls differ")
                 errs, abs_err, rel = compare_train(name, a, tm, hm, label)
                 key = f"{name}/{label}"
                 for out, err in errs.items():

@@ -30,7 +30,9 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
 
 // Deterministic column sums of a (rows, cols) f32 array of per-block
 // partials, for the kernels whose TPU versions accumulate across a

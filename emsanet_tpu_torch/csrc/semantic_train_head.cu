@@ -28,27 +28,23 @@
 // The design keeps the (N, H, W, C) full-res logits and their gradient out
 // of device memory, as the TPU kernel does: a block stages a 4 x 32 tile
 // of half-res pixels with its halo in shared memory, all classes at once
-// (C <= kMaxLossClasses), one thread per pixel. The forward makes two
+// (C <= kMaxLossClasses). The forward, one thread per pixel, makes two
 // passes over the classes (max, target logit and logit sum; then the sum
-// of exp). The backward first computes every halo pixel's max, sumexp,
-// class and weight, then for each class the dz of the tile and its 1-pixel
-// halo (in shared memory), the pixel's dx (kept in shared memory until a
-// coalesced store) and the block's 16 tap sums. Block partials go through
-// the fixed-order reduction of common.cuh, so the loss and dkp do not
-// vary from run to run.
+// of exp). The backward (redesigned; its notes are above its kernel)
+// forms the softmax statistics once per position and dz a chunk of
+// classes at a time. Block partials go through the fixed-order reduction
+// of common.cuh, so the loss and dkp do not vary from run to run.
 //
 // Layouts: x, dx (N, H2, W2, C) NHWC in T; taps (4, 4, C) f32 (common.cuh);
 // target (N, 2 H2, 2 W2) int32; cw (C) f32; gscale one f32 on the device.
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace emsanet {
 
 constexpr int kMaxLossClasses = 64;
-// the backward's staged input: the tile with a 2-pixel halo
-constexpr int kHalo2H = kTileH + 4, kHalo2W = kTileW + 4;
-// positions whose dz the backward forms: the tile with a 1-pixel halo
-constexpr int kDzPos = kHaloH * kHaloW;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -179,137 +175,375 @@ head_loss_fwd_kernel(const T* __restrict__ x, const float* __restrict__ taps,
   }
 }
 
-inline size_t bwd_smem_floats(int c) {
-  const int stride = tile_stride(c);
-  return 16 * (size_t)c + c + (size_t)kHalo2H * kHalo2W * stride +
-         4 * 4 * (size_t)kDzPos + 4 * (size_t)kDzPos +
-         (size_t)kTileThreads * stride + 16 * (kTileThreads / 32);
+// ---- backward ---------------------------------------------------------
+//
+// A persistent grid walks 8 x 16 tiles of half-res pixels in a fixed
+// order, as many blocks as fit on the card at once (a fixed number per
+// device, type and C, so every call splits the work the same way). Per
+// tile:
+// (1) stage the tile with a 2-pixel halo, all C classes, in the storage
+//     type T (16-byte loads where C allows);
+// (2) one thread per position of the tile and its 1-pixel halo (180
+//     positions) forms the four parity logits of each class (the parity is
+//     a compile-time constant: no register array is indexed at run time,
+//     and the taps are read as float4 from a class-major copy), their max,
+//     and then their sum of exp, and keeps max, sum, weight and target in
+//     registers. In bf16 the logits (rounded to T, as the TPU kernel
+//     rounds them) are kept in shared memory, 8 bytes per position and
+//     class, for the sum and for dz; in f32 they are recomputed;
+// (3) for a chunk of kChunk classes at a time, the same thread forms dz of
+//     its position's four parities (rounded to T); after one barrier every
+//     thread computes dx of (own pixel, class) items, summing the 16
+//     polyphase terms in the TPU kernel's order (parity, then tap
+//     row-major), and the tap-gradient partials of (half, parity, tap,
+//     class) items over the half's 4 rows, in pixel order, added into
+//     per-block shared sums;
+// (4) the tile's dx leaves in coalesced rows.
+// The barriers and the halo recompute are paid per chunk of classes, not
+// per class. At the end each block writes its 16 C tap-gradient row (the
+// two halves added in order) and `reduce_rows` adds the rows in a fixed
+// order: repeated calls give the same bits.
+constexpr int kBH = 8, kBW = 16;           // own tile
+constexpr int kOwn = kBH * kBW;
+constexpr int kChunk = 8;                  // classes per dz chunk
+constexpr int kPosW = kBW + 2;             // 1-halo grid: 10 x 18
+constexpr int kPos = (kBH + 2) * kPosW;
+constexpr int kStageW = kBW + 4;           // 2-halo stage: 12 x 20
+constexpr int kStage = (kBH + 4) * kStageW;
+constexpr int kG = 2;                      // threads per position
+constexpr int kBwdThreads = (kPos * kG + 31) / 32 * 32;
+
+// Elements per staged pixel: an odd number of 4-byte words in T, so the
+// threads of a warp (consecutive pixels, one class) hit distinct banks.
+template <typename T>
+__host__ __device__ inline int bwd_stride(int c) {
+  return sizeof(T) == 2 ? (((c + 1) / 2) | 1) * 2 : (c | 1);
+}
+
+// bf16 keeps every position's logits (4 parities x C classes, in T).
+template <typename T>
+constexpr bool kLogitCache = sizeof(T) == 2;
+
+// Shared memory: the f32 arrays (taps, class weights, tap-gradient sums),
+// padded to 16 bytes, then the T arrays, the logits first (8-byte loads).
+__host__ __device__ inline size_t bwd_float_bytes(int c) {
+  return (sizeof(float) * 49 * (size_t)c + 15) / 16 * 16;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kTileThreads)
+__host__ __device__ inline size_t bwd_smem_bytes(int c) {
+  const int s = bwd_stride<T>(c);
+  return bwd_float_bytes(c) +
+         sizeof(T) * ((kLogitCache<T> ? (size_t)c * kPos * 4 : 0) +
+                      (size_t)kStage * s + (size_t)kChunk * 4 * kPos +
+                      (size_t)kOwn * s);
+}
+
+// f32 -> T -> f32, round to nearest even (finite values and infinities),
+// by integer operations: the same bits as __float2bfloat16_rn at the
+// integer units' rate rather than the conversion unit's.
+template <typename T>
+__device__ __forceinline__ float rne(float v) {
+  if constexpr (sizeof(T) == 2) {
+    unsigned u = __float_as_uint(v);
+    u += 0x7fffu + ((u >> 16) & 1u);
+    return __uint_as_float(u & 0xffff0000u);
+  } else {
+    return v;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T to_storage(float v) {
+  if constexpr (sizeof(T) == 2) {
+    return __ushort_as_bfloat16(
+        (unsigned short)(__float_as_uint(rne<T>(v)) >> 16));
+  } else {
+    return v;
+  }
+}
+
+// The four parity logits of one class from a 3x3 neighbourhood and the
+// class's 16 taps ([parity][tap], `parity_value` of common.cuh).
+template <typename T>
+__device__ __forceinline__ void parity_logits(const float v[3][3],
+                                              const float* tk,
+                                              float out[4]) {
+  float k[16];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 t4 = reinterpret_cast<const float4*>(tk)[q];
+    k[4 * q] = t4.x;
+    k[4 * q + 1] = t4.y;
+    k[4 * q + 2] = t4.z;
+    k[4 * q + 3] = t4.w;
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int pr = p >> 1, pc = p & 1;
+    float acc = __fmul_rn(v[pr][pc], k[4 * p]);
+    acc = __fadd_rn(acc, __fmul_rn(v[pr][pc + 1], k[4 * p + 1]));
+    acc = __fadd_rn(acc, __fmul_rn(v[pr + 1][pc], k[4 * p + 2]));
+    acc = __fadd_rn(acc, __fmul_rn(v[pr + 1][pc + 1], k[4 * p + 3]));
+    out[p] = rne<T>(acc);
+  }
+}
+
+// v holds bf16 values: their high halves are exact
+__device__ __forceinline__ void store_logits(__nv_bfloat16* p,
+                                             const float v[4]) {
+  uint2 u;
+  u.x = (__float_as_uint(v[0]) >> 16) | (__float_as_uint(v[1]) & 0xffff0000u);
+  u.y = (__float_as_uint(v[2]) >> 16) | (__float_as_uint(v[3]) & 0xffff0000u);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ void load_logits(const __nv_bfloat16* p,
+                                            float v[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  v[0] = lo.x;
+  v[1] = lo.y;
+  v[2] = hi.x;
+  v[3] = hi.y;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
 head_loss_bwd_kernel(const T* __restrict__ x, const float* __restrict__ taps,
                      const int* __restrict__ target,
                      const float* __restrict__ cw,
                      const float* __restrict__ gscale_p, T* __restrict__ dx,
-                     float* __restrict__ partials, int h2, int w2, int c,
-                     float ls) {
-  extern __shared__ float smem[];
-  const int stride = tile_stride(c);
-  float* s_taps = smem;                                   // (4, 4, C)
-  float* s_cw = s_taps + 16 * c;                          // (C)
-  float* s_x = s_cw + c;                                  // 2-halo stage
-  float* s_m = s_x + kHalo2H * kHalo2W * stride;          // [pos][p]
-  float* s_se = s_m + 4 * kDzPos;
-  float* s_wg = s_se + 4 * kDzPos;
-  int* s_ti = reinterpret_cast<int*>(s_wg + 4 * kDzPos);
-  float* s_dz = reinterpret_cast<float*>(s_ti + 4 * kDzPos);  // [pos][p]
-  float* s_dx = s_dz + 4 * kDzPos;                        // [pix][stride]
-  float* s_red = s_dx + kTileThreads * stride;            // [warp][16]
-  for (int i = threadIdx.x; i < 16 * c; i += kTileThreads) s_taps[i] = taps[i];
-  for (int i = threadIdx.x; i < c; i += kTileThreads) s_cw[i] = cw[i];
-  const float gscale = *gscale_p;
+                     float* __restrict__ partials, int n, int h2, int w2,
+                     int c, float ls, int vec) {
+  extern __shared__ float4 smem4[];
+  const int stride = bwd_stride<T>(c);
+  float* s_tk = reinterpret_cast<float*>(smem4);  // (C, 4 parities, 4 taps)
+  float* s_cw = s_tk + 16 * c;                  // (C)
+  float* s_dkp = s_cw + c;                      // (2 halves, 16, C)
+  T* s_lg = reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) +
+                                 bwd_float_bytes(c));  // (C, kPos, 4), bf16
+  T* s_x = s_lg + (kLogitCache<T> ? c * kPos * 4 : 0);  // 2-halo stage
+  T* s_dz = s_x + kStage * stride;              // (kChunk, 4, kPos)
+  T* s_dx = s_dz + kChunk * 4 * kPos;           // (own pixel, stride)
   const int tid = threadIdx.x;
-  const int tx = tid % kTileW, ty = tid / kTileW;
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
-  const int img = blockIdx.z;
-  stage_window<T>(s_x, x, img, y0, x0, 2, kHalo2H, kHalo2W, h2, w2, c,
-                  stride);
-  __syncthreads();
+  for (int i = tid; i < 16 * c; i += kBwdThreads)
+    s_tk[(i % c) * 16 + i / c] = taps[i];
+  for (int i = tid; i < c; i += kBwdThreads) s_cw[i] = cw[i];
+  for (int i = tid; i < 32 * c; i += kBwdThreads) s_dkp[i] = 0.f;
+  const float gscale = *gscale_p;
+  const float inv_c = 1.f / (float)c;
+  const int tiles_x = ceil_div(w2, kBW), tiles_y = ceil_div(h2, kBH);
+  const int n_tiles = n * tiles_x * tiles_y;
+  // this thread's position of the 1-halo grid (kG neighbouring lanes
+  // share one, each taking every kG-th class; threads past kG kPos have
+  // none)
+  const int pos = tid / kG, g = tid % kG;
+  const int qy = pos / kPosW, qx = pos % kPosW;
+  const bool has_pos = pos < kPos;
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
 
-  // per-position statistics of the tile and its 1-pixel halo; a position
-  // outside the image gets weight 0, so its dz is 0
-  for (int i = tid; i < 4 * kDzPos; i += kTileThreads) {
-    const int pos = i / 4, p = i % 4;
-    const int qy = pos / kHaloW, qx = pos % kHaloW;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int img = tile / (tiles_x * tiles_y);
+    const int rem = tile % (tiles_x * tiles_y);
+    const int y0 = (rem / tiles_x) * kBH, x0 = (rem % tiles_x) * kBW;
+    __syncthreads();  // the previous tile's stage, logits, dz, dx are read
+    if (vec) {  // C a multiple of V, x 16-byte aligned
+      const int vpp = c / V;
+      for (int i = tid; i < kStage * vpp; i += kBwdThreads) {
+        const int pix = i / vpp, v = i % vpp;
+        const int r = y0 - 2 + pix / kStageW, q = x0 - 2 + pix % kStageW;
+        uint4 val = make_uint4(0, 0, 0, 0);
+        if (r >= 0 && r < h2 && q >= 0 && q < w2)
+          val = *reinterpret_cast<const uint4*>(
+              x + (((size_t)img * h2 + r) * w2 + q) * c + v * V);
+        T* dst = s_x + pix * stride + v * V;
+        if constexpr (sizeof(T) == 2) {  // the stride is even
+          unsigned* d = reinterpret_cast<unsigned*>(dst);
+          d[0] = val.x;
+          d[1] = val.y;
+          d[2] = val.z;
+          d[3] = val.w;
+        } else {
+          const T* e = reinterpret_cast<const T*>(&val);
+#pragma unroll
+          for (int j = 0; j < V; ++j) dst[j] = e[j];
+        }
+      }
+    } else {
+      for (int i = tid; i < kStage * c; i += kBwdThreads) {
+        const int ch = i % c, pix = i / c;
+        const int r = y0 - 2 + pix / kStageW, q = x0 - 2 + pix % kStageW;
+        T v = T(0.f);
+        if (r >= 0 && r < h2 && q >= 0 && q < w2)
+          v = x[(((size_t)img * h2 + r) * w2 + q) * c + ch];
+        s_x[pix * stride + ch] = v;
+      }
+    }
+    // the thread's position; outside the image or with a void label its
+    // weight is 0, so its dz is 0
+    float m[4], se[4], wgt[4];
+    int ti[4];
     const int yy = y0 - 1 + qy, xq = x0 - 1 + qx;
-    float wg = 0.f, m = 0.f, se = 1.f;
-    int ti = 0;
-    if (yy >= 0 && yy < h2 && xq >= 0 && xq < w2) {
-      const int lab = label_at(target, img, h2, w2, yy, xq, p);
-      ti = min(max(lab - 1, 0), c - 1);
-      if (lab > 0) {
-        const PixelStats st = pixel_stats<T>(s_x, stride, kHalo2W, qy, qx,
-                                             s_taps, c, p, ti);
-        m = st.m;
-        se = st.sumexp;
-        wg = gscale * s_cw[ti];
-      }
-    }
-    s_m[i] = m;
-    s_se[i] = se;
-    s_wg[i] = wg;
-    s_ti[i] = ti;
-  }
-  const bool inside = x0 + tx < w2 && y0 + ty < h2;
-  const int warp = tid / 32, lane = tid % 32;
-
-  for (int k = 0; k < c; ++k) {
-    __syncthreads();  // statistics ready; the previous class's dz read
-    for (int i = tid; i < 4 * kDzPos; i += kTileThreads) {
-      float dz = 0.f;
-      if (s_wg[i] != 0.f) {
-        const int pos = i / 4, p = i % 4;
-        float v[3][3];
-        neighbourhood(s_x, stride, kHalo2W, pos / kHaloW, pos % kHaloW, k,
-                      v);
-        const float val = parity_value<T>(v, s_taps + k, c, p);
-        const float sm = expf(round_to<T>(val - s_m[i])) / s_se[i];
-        const float tdist =
-            (1.f - ls) * (k == s_ti[i] ? 1.f : 0.f) + ls / (float)c;
-        dz = round_to<T>(s_wg[i] * (sm - tdist));
-      }
-      s_dz[i] = dz;
-    }
-    __syncthreads();
-    // dx of the own pixel: dz_p at (y + 1 - pr - a, x + 1 - pc - b), in
-    // the TPU kernel's order (parity, then tap row-major)
-    float acc = 0.f;
-    float prod[16];
+    const bool in_img = has_pos && yy >= 0 && yy < h2 && xq >= 0 && xq < w2;
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
-      const int pr = p >> 1, pc = p & 1;
+      const int lab = in_img ? label_at(target, img, h2, w2, yy, xq, p) : 0;
+      ti[p] = min(max(lab - 1, 0), c - 1);
+      wgt[p] = lab > 0 ? gscale * s_cw[ti[p]] : 0.f;
+      m[p] = __int_as_float(0xff800000);  // -inf
+      se[p] = 0.f;
+    }
+    __syncthreads();  // the stage is complete
+    const bool any = wgt[0] != 0.f || wgt[1] != 0.f || wgt[2] != 0.f ||
+                     wgt[3] != 0.f;
+    // the logits of class k at the thread's position
+    auto logits = [&](int k, float l[4]) {
+      if constexpr (kLogitCache<T>) {
+        load_logits(s_lg + ((size_t)k * kPos + pos) * 4, l);
+      } else {
+        float v[3][3];
 #pragma unroll
-      for (int a = 0; a < 2; ++a)
+        for (int i = 0; i < 3; ++i)
 #pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          // dz position in the 1-halo grid of (ty + 1 - pr - a + 1, ...)
-          const int pos = (ty + 2 - pr - a) * kHaloW + tx + 2 - pc - b;
-          const float dzv = s_dz[pos * 4 + p];
-          const float kv = s_taps[(p * 4 + a * 2 + b) * c + k];
-          acc = __fadd_rn(acc, __fmul_rn(dzv, kv));
-          // dkp: own dz times the tap's input x[y-1+pr+a][x-1+pc+b]
-          const int own = ((ty + 1) * kHaloW + tx + 1) * 4 + p;
-          const float xv =
-              s_x[((ty + 1 + pr + a) * kHalo2W + tx + 1 + pc + b) * stride +
-                  k];
-          prod[p * 4 + a * 2 + b] = inside ? s_dz[own] * xv : 0.f;
+          for (int j = 0; j < 3; ++j)
+            v[i][j] = ld(s_x + ((qy + i) * kStageW + qx + j) * stride + k);
+        parity_logits<T>(v, s_tk + 16 * k, l);
+      }
+    };
+    if (any) {
+      for (int k = g; k < c; k += kG) {
+        float v[3][3], l[4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            v[i][j] = ld(s_x + ((qy + i) * kStageW + qx + j) * stride + k);
+        parity_logits<T>(v, s_tk + 16 * k, l);
+        if constexpr (kLogitCache<T>)
+          store_logits(s_lg + ((size_t)k * kPos + pos) * 4, l);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) m[p] = fmaxf(m[p], l[p]);
+      }
+    }
+    // the lanes of a position exchange their partial max, then their
+    // partial sums (a + b is b + a: both lanes hold the same bits)
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      m[p] = fmaxf(m[p], __shfl_xor_sync(0xffffffffu, m[p], 1));
+    if (any) {
+      for (int k = g; k < c; k += kG) {
+        float l[4];
+        logits(k, l);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) se[p] += expf(rne<T>(l[p] - m[p]));
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      se[p] += __shfl_xor_sync(0xffffffffu, se[p], 1);
+
+    for (int c0 = 0; c0 < c; c0 += kChunk) {
+      const int kc = min(kChunk, c - c0);
+      // dz of the thread's position, the chunk's classes, four parities
+      if (has_pos) {
+        for (int kk = g; kk < kc; kk += kG) {
+          const int k = c0 + kk;
+          float l[4] = {0.f, 0.f, 0.f, 0.f};
+          if (any) logits(k, l);
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            float dz = 0.f;
+            if (wgt[p] != 0.f) {
+              const float sm = expf(rne<T>(l[p] - m[p])) / se[p];
+              const float tdist =
+                  (1.f - ls) * (k == ti[p] ? 1.f : 0.f) + ls * inv_c;
+              dz = wgt[p] * (sm - tdist);
+            }
+            s_dz[(kk * 4 + p) * kPos + pos] = to_storage<T>(dz);
+          }
         }
-    }
-    s_dx[tid * stride + k] = acc;
+      }
+      __syncthreads();
+      // dx of (own pixel, class): dz_p at (y + 1 - pr - a, x + 1 - pc - b)
+      for (int i = tid; i < kc * kOwn; i += kBwdThreads) {
+        const int kk = i / kOwn, px = i % kOwn;
+        const int ty = px / kBW, tx = px % kBW, k = c0 + kk;
+        float acc = 0.f;
 #pragma unroll
-    for (int q = 0; q < 16; ++q) {
-      const float v = warp_sum(prod[q]);
-      if (lane == 0) s_red[warp * 16 + q] = v;
+        for (int p = 0; p < 4; ++p) {
+          const int pr = p >> 1, pc = p & 1;
+          const T* dzp = s_dz + (kk * 4 + p) * kPos;
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              const int pos = (ty + 2 - pr - a) * kPosW + tx + 2 - pc - b;
+              acc = __fadd_rn(acc, __fmul_rn(ld(dzp + pos),
+                                             s_tk[16 * k + p * 4 + a * 2 + b]));
+            }
+        }
+        s_dx[px * stride + k] = to_storage<T>(acc);
+      }
+      // tap gradients of (half, parity, tap, class) over the half's own
+      // rows inside the image, in pixel order
+      const int txn = min(kBW, w2 - x0);
+      for (int i = tid; i < 2 * 16 * kc; i += kBwdThreads) {
+        const int half = i / (16 * kc), j = i % (16 * kc);
+        const int kk = j / 16, pt = j % 16, k = c0 + kk;
+        const int p = pt / 4, tap = pt % 4;
+        const int pr = p >> 1, pc = p & 1, a = tap >> 1, b = tap & 1;
+        float acc = 0.f;
+        for (int ty = half * (kBH / 2); ty < (half + 1) * (kBH / 2); ++ty) {
+          if (y0 + ty >= h2) break;
+          const T* dzp = s_dz + (kk * 4 + p) * kPos + (ty + 1) * kPosW + 1;
+          const T* xp = s_x + ((ty + 1 + pr + a) * kStageW + 1 + pc + b) *
+                                  stride + k;
+          for (int tx = 0; tx < txn; ++tx)
+            acc += ld(dzp + tx) * ld(xp + tx * stride);
+        }
+        s_dkp[(half * 16 + pt) * c + k] += acc;
+      }
+      __syncthreads();  // the chunk's dz is read
     }
-    __syncthreads();
-    if (tid < 16) {
-      float v = 0.f;
-      for (int wi = 0; wi < kTileThreads / 32; ++wi) v += s_red[wi * 16 + tid];
-      const size_t blk =
-          ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
-          blockIdx.x;
-      partials[blk * 16 * c + (size_t)tid * c + k] = v;
+    // the tile's dx, row by row (each row of the tile is contiguous)
+    for (int i = tid; i < kOwn * c; i += kBwdThreads) {
+      const int pix = i / c, k = i % c;
+      const int yy2 = y0 + pix / kBW, xq2 = x0 + pix % kBW;
+      if (yy2 < h2 && xq2 < w2)
+        dx[(((size_t)img * h2 + yy2) * w2 + xq2) * c + k] =
+            s_dx[pix * stride + k];
     }
   }
   __syncthreads();
-  for (int i = tid; i < kTileThreads * c; i += kTileThreads) {
-    const int pix = i / c, k = i % c;
-    const int yy = y0 + pix / kTileW, xq = x0 + pix % kTileW;
-    if (yy < h2 && xq < w2)
-      st(dx + (((size_t)img * h2 + yy) * w2 + xq) * c + k,
-         s_dx[pix * stride + k]);
+  for (int i = tid; i < 16 * c; i += kBwdThreads) {
+    const int pt = i / c, k = i % c;  // dkp row layout (parity, tap, C)
+    partials[(size_t)blockIdx.x * 16 * c + i] =
+        s_dkp[pt * c + k] + s_dkp[(16 + pt) * c + k];
   }
+}
+
+// Blocks of the backward's persistent grid: as many as fit on the card.
+template <typename T>
+int bwd_blocks(int c, int tiles) {
+  static int per_sm[65] = {0};
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (per_sm[c] == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm[c], head_loss_bwd_kernel<T>, kBwdThreads,
+        bwd_smem_bytes<T>(c));
+    if (per_sm[c] < 1) per_sm[c] = 1;
+  }
+  const int slots = sms * per_sm[c];
+  return tiles < slots ? tiles : slots;
 }
 
 inline int n_tile_blocks(int n, int h2, int w2) {
@@ -345,23 +579,22 @@ int launch_loss_bwd(int n, int h2, int w2, int c, float ls, const void* x,
                     const void* taps, const void* target, const void* cw,
                     const void* gscale, void* dx, void* dkp, float* work,
                     cudaStream_t stream) {
-  const size_t smem = sizeof(float) * bwd_smem_floats(c);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        head_loss_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int rows = n_tile_blocks(n, h2, w2);
-  head_loss_bwd_kernel<T>
-      <<<dim3(ceil_div(w2, kTileW), ceil_div(h2, kTileH), n), kTileThreads,
-         smem, stream>>>((const T*)x, (const float*)taps,
-                         (const int*)target, (const float*)cw,
-                         (const float*)gscale, (T*)dx, work, h2, w2, c, ls);
+  const size_t smem = bwd_smem_bytes<T>(c);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      head_loss_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int blocks = bwd_blocks<T>(
+      c, n * ceil_div(h2, kBH) * ceil_div(w2, kBW));
+  const int vec = c % (16 / (int)sizeof(T)) == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  head_loss_bwd_kernel<T><<<blocks, kBwdThreads, smem, stream>>>(
+      (const T*)x, (const float*)taps, (const int*)target, (const float*)cw,
+      (const float*)gscale, (T*)dx, work, n, h2, w2, c, ls, vec);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return reduce_rows(work, (float*)dkp, work + (size_t)rows * 16 * c, rows,
-                     16 * c, stream);
+  return reduce_rows(work, (float*)dkp, work + (size_t)blocks * 16 * c,
+                     blocks, 16 * c, stream);
 }
 
 }  // namespace emsanet
@@ -369,7 +602,9 @@ int launch_loss_bwd(int n, int h2, int w2, int c, float ls, const void* x,
 // Workspace floats of one call (the backward's is the larger).
 extern "C" int semantic_train_head_workspace(int n, int h2, int w2, int c) {
   using namespace emsanet;
-  return (n_tile_blocks(n, h2, w2) + kReduceSplits) * 16 * c;
+  const int bwd_rows = n * ceil_div(h2, kBH) * ceil_div(w2, kBW);
+  const int rows = n_tile_blocks(n, h2, w2);
+  return ((rows > bwd_rows ? rows : bwd_rows) + kReduceSplits) * 16 * c;
 }
 
 // sums (2) f32: sum w nll, sum w. C in [1, 64]; the wrapper checks shapes.

@@ -237,13 +237,14 @@ def build_train_model(
 ) -> EMSANet:
     """The training model on `device` (default 'cuda', which must exist),
     in train mode, with float32 parameters (cast to `cfg.compute_dtype`
-    at use) and random weights drawn from `seed` (`weights.random_init_`;
-    seed=None keeps the module defaults)."""
-    from emsanet_tpu_torch.weights import random_init_
+    at use), initialized as the reference initializes its model, drawn
+    from `seed` (`weights.reference_init_`; seed=None keeps the module
+    defaults)."""
+    from emsanet_tpu_torch.weights import reference_init_
 
     dev = resolve_device(device)
     model = EMSANet(cfg, dataset_config, train=True)
     if seed is not None:
-        random_init_(model, seed)
+        reference_init_(model, seed)
     model = model.to(device=dev, memory_format=torch.channels_last)
     return model.train()

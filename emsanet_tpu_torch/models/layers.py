@@ -357,13 +357,17 @@ def _cached_chain_params(tail: Sequence[NonBottleneck1D],
     Stacking and folding is ~30 small ops per chain; at batch 1 their
     launches cost more than the chain. The cache key holds every tensor's
     storage address and in-place version counter, so loading new weights
-    or moving the model rebuilds it.
+    or moving the model rebuilds it. In bf16 it also holds the kernel's
+    K-major weights (`wt`).
     """
     tensors = [t for b in tail for t in
                list(b.parameters()) + list(b.buffers())]
     key = (dtype, tuple((t.data_ptr(), t._version) for t in tensors))
     cached = getattr(tail[0], "_chain_cache", None)
     if cached is None or cached[0] != key:
-        cached = (key, stack_chain_params(tail, dtype))
+        stacked = stack_chain_params(tail, dtype)
+        if dtype == torch.bfloat16:
+            stacked["wt"] = chain_ops.kmajor_weights(stacked, dtype)
+        cached = (key, stacked)
         tail[0]._chain_cache = cached
     return cached[1]

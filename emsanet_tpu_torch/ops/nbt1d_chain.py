@@ -1,15 +1,19 @@
 """K stride-1 NonBottleneck1D blocks at inference (folded BatchNorm).
 
 Counterpart of `emsanet_tpu/ops/nbt1d_chain.py::nbt1d_chain`. On a CUDA
-tensor `nbt1d_chain` launches the hand-written kernel
-`csrc/nbt1d_chain.cu` twice per block, once per conv pair (in bf16 two
-implicit-GEMM convs on the tensor cores, in f32 the whole pair on the CUDA
-cores with its intermediate in shared memory); on a CPU tensor it runs
-`nbt1d_chain_plain`, the block-by-block PyTorch loop.
+tensor `nbt1d_chain` runs the whole chain in one call of the hand-written
+`csrc/nbt1d_chain.cu` (bf16: `wgmma` convs fed by TMA, the C = 64 and
+C = 128 pairs in one launch each, the wider pairs in two implicit-GEMM
+launches, K split across blocks where a C = 512 map gives too few tiles;
+f32: the whole pair on the CUDA cores with its intermediate in shared
+memory); on a CPU tensor it runs `nbt1d_chain_plain`, the block-by-block
+PyTorch loop. The launch count adds one per conv pair.
 
 `stacked` holds the chain's parameters in the JAX package's layout
 (`stack_chain_params` there): w31/w13 (K, 2, 3, C_in, C_out),
-b31/b13/bn_scale/bn_shift (K, 2, C). x is NHWC.
+b31/b13/bn_scale/bn_shift (K, 2, C). x is NHWC. The bf16 kernels take
+the weights K-major (`kmajor_weights`); `stacked["wt"]`, where present in
+x's dtype, holds them already (`models/layers.py` caches them so).
 """
 
 from __future__ import annotations
@@ -46,6 +50,14 @@ def nbt1d_chain_plain(x: torch.Tensor, stacked: Stacked) -> torch.Tensor:
     return h.permute(0, 2, 3, 1).contiguous()
 
 
+def kmajor_weights(stacked: Stacked, dtype: torch.dtype) -> torch.Tensor:
+    """w31 and w13 as one (K, 2, 2, 3, C_out, C_in) tensor in dtype:
+    [block][pair][conv][tap], each tap's (C_out, C_in) matrix K-major, the
+    layout of the bf16 kernels' weight operand."""
+    wt = torch.stack([stacked["w31"], stacked["w13"]], dim=2)
+    return wt.transpose(-1, -2).to(dtype).contiguous()
+
+
 def nbt1d_chain(x: torch.Tensor, stacked: Stacked) -> torch.Tensor:
     """Run the K blocks of `stacked` over x (N, H, W, C)."""
     if not x.is_cuda:
@@ -64,36 +76,39 @@ def nbt1d_chain(x: torch.Tensor, stacked: Stacked) -> torch.Tensor:
         ):
             raise ValueError(f"{key} must be a CUDA tensor "
                              f"({k}, 2, 3, {c}, {c})")
-    w31 = stacked["w31"].to(x.dtype).contiguous()
-    w13 = stacked["w13"].to(x.dtype).contiguous()
     vecs = {key: stacked[key].float().contiguous()
             for key in ("b31", "b13", "bn_scale", "bn_shift")}
     for key, v in vecs.items():
         if tuple(v.shape) != (k, 2, c) or not v.is_cuda:
             raise ValueError(f"{key} must be a CUDA tensor ({k}, 2, {c})")
-    fn = _native.bind("nbt1d_chain", "nbt1d_pair_launch", 16,
-                      int_args=[0, 1, 2, 3, 4])
-    dtype_code = int(x.dtype == torch.bfloat16)
-    stream = _native.stream_ptr(x)
-    scratch = torch.empty_like(x) if dtype_code else None
-    cur = x
-    for blk in range(k):
-        mid = torch.empty_like(x)
-        out = torch.empty_like(x)
-        for i, (src, dst, res) in enumerate(((cur, mid, None),
-                                             (mid, out, cur))):
-            err = fn(dtype_code, n, h, w, c, src.data_ptr(),
-                     w31[blk, i].data_ptr(), vecs["b31"][blk, i].data_ptr(),
-                     w13[blk, i].data_ptr(), vecs["b13"][blk, i].data_ptr(),
-                     vecs["bn_scale"][blk, i].data_ptr(),
-                     vecs["bn_shift"][blk, i].data_ptr(),
-                     None if res is None else res.data_ptr(),
-                     None if scratch is None else scratch.data_ptr(),
-                     dst.data_ptr(), stream)
-            _NBT1D_CHAIN.launches += 1
-            _native.check(err, "nbt1d_pair")
-        cur = out
-    return cur
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        wt = stacked.get("wt")
+        if wt is None or wt.dtype != x.dtype or tuple(wt.shape) != (
+                k, 2, 2, 3, c, c):
+            wt = kmajor_weights(stacked, x.dtype)
+        w31 = w13 = None
+    else:
+        wt = None
+        w31 = stacked["w31"].float().contiguous()
+        w13 = stacked["w13"].float().contiguous()
+    ws_floats = _native.bind("nbt1d_chain", "nbt1d_chain_workspace", 4,
+                             int_args=[0, 1, 2, 3])(n, h, w, c) if bf16 else 0
+    ws = torch.empty(max(ws_floats, 1), device=x.device, dtype=torch.float32)
+    # scratch of x's size: the bf16 conv3x1 output, a block's first pair's
+    # output, and the two block outputs the call alternates between
+    t, mid, p0, p1 = (torch.empty_like(x) for _ in range(4))
+    fn = _native.bind("nbt1d_chain", "nbt1d_chain_launch", 20,
+                      int_args=[0, 1, 2, 3, 4, 5])
+    ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
+    err = fn(int(bf16), n, h, w, c, k, x.data_ptr(), ptr(w31), ptr(w13),
+             ptr(wt), vecs["b31"].data_ptr(), vecs["b13"].data_ptr(),
+             vecs["bn_scale"].data_ptr(), vecs["bn_shift"].data_ptr(),
+             t.data_ptr(), mid.data_ptr(), p0.data_ptr(), p1.data_ptr(),
+             ws.data_ptr(), _native.stream_ptr(x))
+    _NBT1D_CHAIN.launches += 2 * k  # one per conv pair
+    _native.check(err, "nbt1d_chain")
+    return p0 if k % 2 else p1
 
 
 # the launch count lives on the function object; the body reaches it

@@ -1,4 +1,4 @@
-"""Weights: flax -> PyTorch conversion and seeded random initialization.
+"""Weights: flax -> PyTorch conversion and seeded initializations.
 
 `flax_to_state_dict` carries a flax `{"params", "batch_stats"}` tree (as
 numpy arrays) over to the port's `state_dict`. The port's modules are
@@ -20,12 +20,14 @@ of the wrong shape.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
+from emsanet_tpu_torch.models.encoder import SEFusion
 from emsanet_tpu_torch.models.layers import BatchNorm, NonBottleneck1D
 from emsanet_tpu_torch.models.upsampling import (
     BILINEAR_MIMIC_KERNEL,
@@ -137,4 +139,70 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
             module.bias.copy_(torch.randn(c, generator=g) * 0.1)
             module.running_mean.copy_(torch.randn(c, generator=g) * 0.1)
             module.running_var.copy_(torch.rand(c, generator=g) + 0.5)
+    return model
+
+
+# std of a standard normal truncated to [-2, 2]: flax's variance_scaling
+# divides its truncated draws by it, so the result has the asked-for std
+_TRUNC2_STD = 0.87962566103423978
+
+
+def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """N(0, 1) truncated to [-2, 2], by the inverse CDF (as
+    `torch.nn.init.trunc_normal_` draws it)."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    u = lo + (1.0 - 2.0 * lo) * u
+    z = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
+    return z.clamp_(-2.0, 2.0).float()
+
+
+@torch.no_grad()
+def reference_init_(model: nn.Module, seed: int) -> nn.Module:
+    """The reference's initialization (flax's `init_model`,
+    `emsanet_tpu/models/emsanet.py:357`), drawn from `seed`.
+
+    Convs and dense layers: `lecun_normal`, a normal truncated at +-2 std
+    and scaled to std 1 / sqrt(fan_in), fan_in = kh * kw * c_in / groups;
+    He-normal (untruncated, std sqrt(2 / fan_in)) for the SE layers of
+    the encoder fusion where `cfg.he_init` names "encoder-fusion"
+    (`emsanet_tpu/models/layers.py:29-30`, `:125`). Biases 0. BatchNorm
+    scale 1, bias 0, running mean 0, running var 1, except scale 0 on
+    the last norm of the zero-init-residual NBt1D blocks (the decoders',
+    `layers.py:179-185`; `no_zero_init_decoder_residuals` builds none).
+    Learned upsamplings: the bilinear-mimic kernel. The draws come from a
+    `torch.Generator(seed)`, so the bits differ from JAX's; their
+    distributions are the same.
+    """
+    g = torch.Generator().manual_seed(seed)
+    cfg = getattr(model, "cfg", None)
+    he = set()
+    if cfg is not None and "encoder-fusion" in cfg.he_init:
+        he = {id(m) for f in model.modules() if isinstance(f, SEFusion)
+              for m in f.modules() if isinstance(m, nn.Linear)}
+    zero_scale = {id(m.BatchNorm_0) for m in model.modules()
+                  if isinstance(m, NonBottleneck1D) and m.zero_init_residual}
+    for module in model.modules():
+        if isinstance(module, Upsampling) and hasattr(module, "depthwise"):
+            w = module.depthwise.weight
+            w.copy_(torch.from_numpy(np.broadcast_to(
+                BILINEAR_MIMIC_KERNEL, tuple(w.shape)).copy()))
+        elif isinstance(module, (nn.Conv2d, nn.Linear)):
+            if isinstance(module, nn.Conv2d) and module.groups > 1:
+                continue  # depthwise upsampling, set above
+            w = module.weight
+            fan_in = w[0].numel()
+            if id(module) in he:
+                w.copy_(torch.randn(w.shape, generator=g)
+                        * math.sqrt(2.0 / fan_in))
+            else:
+                w.copy_(_truncated_normal(w.shape, g)
+                        / _TRUNC2_STD / math.sqrt(fan_in))
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, BatchNorm):
+            module.weight.fill_(0.0 if id(module) in zero_scale else 1.0)
+            module.bias.zero_()
+            module.running_mean.zero_()
+            module.running_var.fill_(1.0)
     return model

@@ -32,6 +32,8 @@ that reaches 1.2e-4 of the sums; on the flagship's 153600 it stays under
 Semantic head loss: loss
 bf16 1e-2 / f32 1e-5 (the kernel rounds the summed polyphase taps to
 bf16, the plain conv each 3x3 tap); dx 5e-2 / 1e-4, dweight 5e-2 / 1e-3.
+The bf16 chain and the head-loss backward add their partial sums in a
+fixed order: two calls give the same bits.
 """
 
 import numpy as np
@@ -160,6 +162,40 @@ def test_cuda_chain_matches_plain(c, shape, dtype, tol):
     want = nbt1d_chain.nbt1d_chain_plain(_t(x).cuda().to(dtype), st)
     err = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert float(err) <= tol
+
+
+# the flagship's chain sites at b1 (15x20 at C = 512 splits K across
+# blocks; C = 64 and 128 run the fused pairs), and ragged maps (13 rows:
+# a partial tile row; 40 columns in the fused pairs' 14-column tiles)
+CHAIN_SITES = [(512, (1, 15, 20)), (256, (1, 30, 40)), (128, (1, 60, 80)),
+               (64, (1, 120, 160)), (128, (1, 13, 40)), (64, (1, 13, 40))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,shape", CHAIN_SITES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_cuda_chain_sites_match_plain(c, shape, dtype, tol):
+    _need_cuda()
+    x, stacked = _chain_case(9, 2, c, shape)
+    st = {k: _t(v).cuda() for k, v in stacked.items()}
+    got = nbt1d_chain.nbt1d_chain(_t(x).cuda().to(dtype), st)
+    want = nbt1d_chain.nbt1d_chain_plain(_t(x).cuda().to(dtype), st)
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert float(err) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,shape", CHAIN_SITES[:4])
+def test_cuda_chain_bf16_repeats_bitwise(c, shape):
+    """No float atomics: the split-K partials are added in a fixed order."""
+    _need_cuda()
+    x, stacked = _chain_case(10, 2, c, shape)
+    st = {k: _t(v).cuda() for k, v in stacked.items()}
+    xb = _t(x).cuda().bfloat16()
+    assert torch.equal(nbt1d_chain.nbt1d_chain(xb, st),
+                       nbt1d_chain.nbt1d_chain(xb, st))
 
 
 @pytest.mark.cuda
@@ -523,12 +559,12 @@ def test_cuda_nbt1d_pair_autograd_matches_plain_autograd(mode):
             assert _rel(leaf.grad, w) <= 1e-3
 
 
-def _loss_case(seed, n, h2, w2, c, dtype):
+def _loss_case(seed, n, h2, w2, c, dtype, void=0.2):
     rng = np.random.RandomState(seed)
     x = _t((rng.randn(n, h2, w2, c) * 2).astype(np.float32))
     w = _t((rng.randn(c, 1, 3, 3) * 0.3 + 0.1).astype(np.float32))
     tgt = rng.randint(0, c + 1, (n, 2 * h2, 2 * w2))
-    tgt = np.where(rng.rand(*tgt.shape) < 0.2, 0, tgt).astype(np.int32)
+    tgt = np.where(rng.rand(*tgt.shape) < void, 0, tgt).astype(np.int32)
     cw = _t((rng.rand(c) + 0.5).astype(np.float32))
     return (x.cuda().bfloat16().to(dtype), w.cuda(), _t(tgt).cuda(),
             cw.cuda())
@@ -556,6 +592,29 @@ def test_cuda_semantic_head_loss_matches_plain(shape, ls, dtype, tol, dxtol,
     assert dx.dtype == dtype and dx.shape == x.shape
     assert _rel(dx, wdx) <= dxtol
     assert dw.shape == w.shape and _rel(dw, wdw) <= dktol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 60, 80, 40), (1, 20, 30, 13)])
+@pytest.mark.parametrize("void", [0.2, 0.9])
+@pytest.mark.parametrize("dtype,dxtol,dktol", [
+    (torch.float32, 1e-4, 1e-3), (torch.bfloat16, 5e-2, 5e-2)])
+def test_cuda_semantic_head_loss_bwd_chunks(shape, void, dtype, dxtol, dktol):
+    """The backward's class chunks (8 classes): C = 40, and C = 13 with a
+    partial last chunk; void-heavy labels leave most positions at weight
+    0. Two calls give the same bits."""
+    _need_cuda()
+    x, w, tgt, cw = _loss_case(18, *shape, dtype, void=void)
+    _, wsum = semantic_train_head.head_loss_fwd(x, w, tgt, cw, 0.1)
+    gscale = torch.tensor([0.7], device="cuda") / wsum
+    dx, dw = semantic_train_head.head_loss_bwd(x, w, tgt, cw, 0.1, gscale)
+    dx2, dw2 = semantic_train_head.head_loss_bwd(x, w, tgt, cw, 0.1, gscale)
+    wdx, wdw = semantic_train_head.head_loss_bwd_plain(x, w, tgt, cw, 0.1,
+                                                       gscale)
+    torch.cuda.synchronize()
+    assert _rel(dx, wdx) <= dxtol
+    assert _rel(dw, wdw) <= dktol
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
 @pytest.mark.cuda
