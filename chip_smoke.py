@@ -5,8 +5,10 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. build: compile every kernel of `emsanet_tpu_torch/csrc` (one nvcc per
-     source, all at once); `ptxas` must give both instantiations of the
-     head-loss backward kernel a 0-byte stack frame.
+     source, all at once); `ptxas` must give both instantiations (bf16,
+     f32) of the head-loss forward and backward kernels and of the decoder
+     trunk kernel a 0-byte stack frame; their registers and shared memory
+     are logged.
   2. main path, per head mode (`interleave`, `decode`, `decode-both`,
      `decode-planes`): the flagship frame (R34-NBt1D dual encoder,
      semantic + instance + orientation + scene, panoptic; 640x480, bf16,
@@ -46,13 +48,20 @@ Phases (any failure exits non-zero and prints no result):
      at b8) against 'off': frame ms (median of 5 rounds, the two in
      alternating order), device busy ms and device kernels per frame
      under torch.profiler; the trunk kernel's ms, plain ms and bound at
-     b2 and b8 (its b1 numbers are those of phase 5).
+     b2 and b8 (its b1 numbers are those of phase 5). Gated: the bf16
+     trunk repeats bit for bit on the b1 and b2 frames' inputs. Logged: the
+     kernel's 42 phases (%globaltimer stamps: each phase's work, and its
+     wait at the grid barrier) at b1 and on a 2x2 context with the
+     flagship's weights (the fixed cost).
   6. profile: each mode's frame at b1 and at b8 under torch.profiler;
      device time by kernel name, the device's busy share of the profiled
      and of the timed frame, and whether ATen's depthwise conv kernel
      still runs (chip_smoke_profile.txt in OUT_DIR); every profiled frame
      must run the chain's wgmma kernels (the C = 64 and 128 pairs and the
-     wider sites' conv) and not the first design's `conv3tap_tc_kernel`; the
+     wider sites' conv) and not the first design's `conv3tap_tc_kernel`,
+     and every profiled b1 frame the bf16 trunk kernel (torch.profiler
+     now and then drops a kernel's records: a frame whose trace lacks a
+     required kernel is profiled again, up to PROFILE_ATTEMPTS times); the
      device time of each kernel that has a library yardstick beside that
      call's.
  6b. chain sites (logged): one line per chain call of the decode-planes
@@ -71,14 +80,15 @@ Phases (any failure exits non-zero and prints no result):
      kernels 12 times), every loss be finite and the last total below
      the first. The kernels' inputs of the first step are captured and
      each train kernel is held against its plain version on them, in
-     bf16 and in f32 (TF32 off); the head-loss backward must repeat bit
-     for bit. The model starts from the reference's initialization
+     bf16 and in f32 (TF32 off); the head-loss forward's sums and the
+     backward must repeat bit for bit. The model starts from the reference's initialization
      (`weights.reference_init_`), as `python -m emsanet_tpu_torch.train`
      does. A 96x128 R18 f32 b4 step (dropout 0,
      every NBt1D tail through the pairs) runs on the card and on the CPU
      from the same weights and batch. Timing: the b8 step
      (median and range of rounds, CUDA events), its device busy share
-     under torch.profiler, each train kernel, its plain version and its
+     under torch.profiler (a step whose trace lacks launches of the pair
+     kernels is profiled again, as the frames are), each train kernel, its plain version and its
      bound; the loader's host time per batch.
 
 Tolerances (error relative to the largest magnitude of the plain result
@@ -212,6 +222,16 @@ PAIR_DEVICE_KERNELS = {"pair_fwd": ("pair_fwd_tc",),
 CHAIN_DEVICE_KERNELS = ("nbt1d_pair64_kernel", "nbt1d_pair128_kernel",
                         "conv3tap_wgmma_kernel")
 OLD_CHAIN_KERNEL = "conv3tap_tc_kernel"
+# the bf16 trunk's device kernel, which every profiled b1 frame must run
+TRUNK_DEVICE_KERNEL = "decoder_trunk_kernel<__nv_bfloat16>"
+# torch.profiler now and then drops a kernel's records from a trace: a
+# frame or step whose trace lacks a kernel it must run is profiled again,
+# and fails when none of this many traces shows it
+PROFILE_ATTEMPTS = 3
+# (source, kernel) whose instantiations ptxas must give no stack frame
+STACK_FREE = (("semantic_train_head", "head_loss_fwd_kernel"),
+              ("semantic_train_head", "head_loss_bwd_kernel"),
+              ("decoder_trunk", "decoder_trunk_kernel"))
 
 
 def log(msg: str) -> None:
@@ -577,15 +597,18 @@ def run() -> int:
             f.write(f"== {src}\n{text}\n")
     log(f"[build] {len(_native.SOURCES)} kernel sources in "
         f"{time.time() - t0:.1f} s")
-    if logs["semantic_train_head"]:  # empty: built by an earlier run
-        frames_b = stack_frames(logs["semantic_train_head"],
-                                "head_loss_bwd_kernel")
-        log(f"[build] ptxas stack frame of head_loss_bwd_kernel (bf16, f32):"
-            f" {frames_b} bytes")
-        if len(frames_b) != 2 or any(frames_b):
-            raise AssertionError(f"head_loss_bwd_kernel: stack frames "
-                                 f"{frames_b}, expected 0 bytes for both "
-                                 "instantiations")
+    for src, kernel in STACK_FREE:
+        if not logs[src]:  # empty: built by an earlier run
+            continue
+        props = ptxas_props(logs[src], kernel)
+        log(f"[build] ptxas {kernel} (each instantiation): "
+            + "; ".join(f"{p['name']}: {p['stack']} bytes stack, "
+                        f"{p['registers']} registers, {p['smem']} bytes "
+                        "static smem" for p in props))
+        if len(props) != 2 or any(p["stack"] for p in props):
+            raise AssertionError(f"{kernel}: stack frames "
+                                 f"{[p['stack'] for p in props]}, expected "
+                                 "0 bytes for both instantiations")
 
     # -- 2. main path, 3. kernels vs plain: mode by mode --------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -754,16 +777,25 @@ def run() -> int:
         f.write(f"{card}\n")
         for mode in MODES:
             for b in BATCHES:
-                wall_ms, rows = profile_frame(frames[mode], inputs[b])
-                busy_ms = sum(r[0] for r in rows)
+                for attempt in range(1, PROFILE_ATTEMPTS + 1):
+                    wall_ms, rows = profile_frame(frames[mode], inputs[b])
+                    busy_ms = sum(r[0] for r in rows)
+                    missing = missing_in_trace(rows, b, f"{mode} b{b}") \
+                        if busy_ms > 0 else []
+                    if not missing:
+                        break
+                    log(f"[profile {mode} b{b}] the trace lacks {missing} "
+                        f"(attempt {attempt} of {PROFILE_ATTEMPTS})")
+                if missing:
+                    raise AssertionError(f"profiled frame {mode} b{b}: "
+                                         f"{missing} did not run")
                 depthwise = sum(r[0] for r in rows
                                 if "conv_depthwise2d" in r[2])
                 busy[f"{mode}/b{b}"] = {"wall_ms": wall_ms,
                                         "busy_ms": busy_ms,
                                         "depthwise_ms": depthwise,
-                                        "frame_ms": frame_ms[mode][b]}
-                if busy_ms > 0:
-                    check_chain_kernels(rows, f"{mode} b{b}")
+                                        "frame_ms": frame_ms[mode][b],
+                                        "attempts": attempt}
                 f.write(f"{mode} b{b} frame under torch.profiler: wall "
                         f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
                         f"ATen conv_depthwise2d {depthwise:.3f} ms\n")
@@ -989,53 +1021,120 @@ def trunk_on_off(torch, frame_auto, ops_mod, card):
                         f"{entry['device_kernels']} device kernels")
         log(f"[trunk on/off {TIMING_MODE} b{b}] " + "; ".join(line))
     spec = [k for k in KERNELS if k[0] == "decoder_trunk"]
-    for b in (2, 8):
+    captured = {}
+    for b in (1, 2, 8):
         with Capture({"decoder_trunk": trunk}, spec) as cap:
             frames[with_trunk[b]](inputs[b])
         ((args, kwargs),) = cap.calls["decoder_trunk"]
+        captured[b] = args
+        if b < 8:  # split partials added in split order: the same bits
+            first, again = (trunk.decoder_trunk(*args) for _ in range(2))
+            torch.cuda.synchronize()
+            if not torch.equal(first, again):
+                raise AssertionError(f"decoder_trunk b{b}: two calls "
+                                     "differ")
+            log(f"[trunk kernel b{b}] two calls on the frame's inputs: "
+                "bit-identical")
+        if b == 1:  # its other numbers are phase 5's
+            report["kernel_b1_device_ms"] = device_ms(
+                lambda: trunk.decoder_trunk(*args))
+            log(f"[trunk kernel b1] device "
+                f"{report['kernel_b1_device_ms']:.4f} ms")
+            continue
         kfn, pfn, _, byts, ops, odt = kernel_spec("decoder_trunk", args,
                                                   kwargs, ops_mod)
         t = {"ms": time_cuda(kfn, 2, 10), "plain_ms": time_cuda(pfn, 2, 10),
-             "bound_ms": max(byts / PEAK_BYTES, ops / PEAK_OPS[odt]) * 1e3}
+             "bound_ms": max(byts / PEAK_BYTES, ops / PEAK_OPS[odt]) * 1e3,
+             "device_ms": device_ms(kfn)}
         report[f"kernel_b{b}"] = t
-        log(f"[trunk kernel b{b}] ms {t['ms']:.4f} plain "
-            f"{t['plain_ms']:.4f} bound {t['bound_ms']:.4f}")
+        log(f"[trunk kernel b{b}] ms {t['ms']:.4f} device "
+            f"{t['device_ms']:.4f} plain {t['plain_ms']:.4f} bound "
+            f"{t['bound_ms']:.4f}")
     # the same weights on a 2x2 context at b1: the phases' work is a few
     # tiles, so this is the kernel's fixed cost (its 41 grid barriers and
     # one read of the weights)
-    con_out, skips, per_module = args
+    con_out, skips, per_module = captured[1]
     g = torch.Generator(device="cuda").manual_seed(0)
     tiny = [torch.randn((1, 2 << i, 2 << i, s.shape[-1]), generator=g,
                         device="cuda").to(s.dtype) for i, s in enumerate(
                             [con_out] + list(skips))]
-    ms = time_cuda(lambda: trunk.decoder_trunk(tiny[0], tiny[1:], per_module),
-                   2, 10)
+    tiny_fn = lambda: trunk.decoder_trunk(tiny[0], tiny[1:], per_module)  # noqa: E731
+    ms, dev = time_cuda(tiny_fn, 2, 10), device_ms(tiny_fn)
     report["kernel_b1_2x2_context"] = ms
+    report["kernel_b1_2x2_context_device_ms"] = dev
     log(f"[trunk kernel] fixed cost (2x2 context, b1, flagship weights): "
-        f"ms {ms:.4f}")
+        f"ms {ms:.4f}, device {dev:.4f}")
+    report["phases"] = {
+        "b1": trunk_phases(torch, trunk, captured[1], "b1"),
+        "2x2": trunk_phases(torch, trunk, (tiny[0], tiny[1:], per_module),
+                            "2x2 context")}
     return report
 
 
-def stack_frames(build_log, kernel):
-    """The `ptxas -v` stack frame sizes of each instantiation of kernel."""
+def trunk_phases(torch, trunk, args, tag, runs=5):
+    """The bf16 trunk kernel's phases from %globaltimer stamps (median of
+    `runs` stamped launches, after one warm-up), in microseconds: per
+    phase its work (start to the last block's end of its units) and its
+    wait (to the next phase's start, across the grid barrier), and block
+    0's first unit step by step (`UNIT_STEPS`). Logged."""
+    import math
+
+    trunk.decoder_trunk_phase_ns(*args)
+    runs_ns = [trunk.decoder_trunk_phase_ns(*args)[1] for _ in range(runs)]
+    rows = []
+    for i, first in enumerate(runs_ns[0]):
+        unit = []
+        for k in range(len(trunk.UNIT_STEPS)):
+            vals = [r[i]["unit"][k] for r in runs_ns
+                    if r[i]["unit"][k] is not None]
+            unit.append(statistics.median(vals) / 1e3 if vals else None)
+        rows.append({
+            "phase": first["phase"],
+            "work_us": statistics.median(r[i]["work"] for r in runs_ns) / 1e3,
+            "wait_us": statistics.median(r[i]["wait"] for r in runs_ns) / 1e3,
+            "unit_us": unit})
+    work = sum(r["work_us"] for r in rows)
+    wait = sum(r["wait_us"] for r in rows)
+    log(f"[trunk phases {tag}] {len(rows)} phases, median of {runs} "
+        f"stamped launches: work {work:.1f} us, wait at the barriers "
+        f"{wait:.1f} us; per phase work/wait us and block 0's first unit "
+        f"({', '.join(trunk.UNIT_STEPS)}; us from the phase's start): "
+        + "; ".join(
+            f"{r['phase']} {r['work_us']:.1f}/{r['wait_us']:.1f} ["
+            + " ".join("-" if v is None or math.isnan(v) else f"{v:.1f}"
+                       for v in r["unit_us"]) + "]" for r in rows))
+    return rows
+
+
+def ptxas_props(build_log, kernel):
+    """`ptxas -v`'s stack frame, registers and static shared memory of
+    each instantiation of kernel (the f32 and the bf16 one)."""
+    import re
+
     out, lines = [], build_log.splitlines()
-    for i, line in enumerate(lines[:-1]):
+    for i, line in enumerate(lines[:-2]):
         if "Function properties for" in line and kernel in line:
-            out.append(int(lines[i + 1].split("bytes stack frame")[0]))
+            used = lines[i + 2]
+            regs = re.search(r"Used (\d+) registers", used)
+            smem = re.search(r"(\d+) bytes smem", used)
+            out.append({
+                "name": "bf16" if "bfloat16" in line else "f32",
+                "stack": int(lines[i + 1].split("bytes stack frame")[0]),
+                "registers": int(regs.group(1)) if regs else None,
+                "smem": int(smem.group(1)) if smem else 0})
     return out
 
 
-def check_chain_kernels(rows, where):
-    """A profiled bf16 frame ran the chain's wgmma kernels and not the
-    first design's mma.sync conv."""
+def missing_in_trace(rows, b, where):
+    """The kernels a profiled bf16 frame must run that its trace lacks:
+    the chain's wgmma kernels, and at b1 the bf16 trunk kernel. Raises if
+    the first design's mma.sync chain conv ran."""
     names = [r[2] for r in rows]
-    for k in CHAIN_DEVICE_KERNELS:
-        if not any(k in n for n in names):
-            raise AssertionError(f"profiled frame {where}: chain kernel {k} "
-                                 "did not run")
     if any(OLD_CHAIN_KERNEL in n for n in names):
         raise AssertionError(f"profiled frame {where}: {OLD_CHAIN_KERNEL} "
                              "ran")
+    need = CHAIN_DEVICE_KERNELS + ((TRUNK_DEVICE_KERNEL,) if b == 1 else ())
+    return [k for k in need if not any(k in n for n in names)]
 
 
 def cudnn_chain(torch, x, st):
@@ -1467,15 +1566,15 @@ def train_phase(torch, card):
     for name, *_ in TRAIN_KERNELS:
         for args, _ in calls[name]:
             for label, a in (("bf16", args), ("f32", _train_f32(name, args))):
-                if name == "head_loss_bwd":
+                if name.startswith("head_loss"):
+                    fn = getattr(hm, name)
                     with torch.no_grad():
-                        first = hm.head_loss_bwd(*a)
-                        again = hm.head_loss_bwd(*a)
+                        first, again = fn(*a), fn(*a)
                     torch.cuda.synchronize()
                     if not all(torch.equal(f, g) for f, g in zip(first,
                                                                  again)):
-                        raise AssertionError(f"head_loss_bwd ({label}): two "
-                                             "calls differ")
+                        raise AssertionError(f"{name} ({label}): two calls "
+                                             "differ")
                 errs, abs_err, rel = compare_train(name, a, tm, hm, label)
                 key = f"{name}/{label}"
                 for out, err in errs.items():
@@ -1505,8 +1604,16 @@ def train_phase(torch, card):
     log(f"[train] b8 640x480 bf16 step: median {step_ms:.2f} ms of "
         f"{TRAIN_ROUNDS} rounds ({min(rounds):.2f}-{max(rounds):.2f}); "
         f"{card}")
-    wall_ms, rows = profile_frame(lambda b: step(b), batch)
-    busy_ms = sum(r[0] for r in rows)
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        wall_ms, rows = profile_frame(lambda b: step(b), batch)
+        busy_ms = sum(r[0] for r in rows)
+        short = [k for kernels in PAIR_DEVICE_KERNELS.values()
+                 for k in kernels
+                 if sum(r[1] for r in rows if k in r[2]) < PAIR_CALLS_PER_STEP]
+        if busy_ms == 0 or not short:
+            break
+        log(f"[train] the profiled step's trace lacks launches of {short} "
+            f"(attempt {attempt} of {PROFILE_ATTEMPTS})")
     log(f"[train] profiled step: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%)" if busy_ms > 0
         else "[train] profiled step: no device time recorded: not measured")
@@ -1526,6 +1633,11 @@ def train_phase(torch, card):
             f"{json.dumps(pair_dev)} ms, "
             f"{100 * sum(pair_dev.values()) / busy_ms:.1f}% of the device "
             f"time")
+        loss_dev = {k: sum(r[0] for r in rows if k in r[2])
+                    for k in ("head_loss_fwd_kernel", "head_loss_bwd_kernel")}
+        report["head_loss_device_ms"] = loss_dev
+        log(f"[train] profiled step: head-loss kernels' device time "
+            f"{json.dumps(loss_dev)} ms")
     with open(os.path.join(OUT_DIR, "chip_smoke_train_profile.txt"),
               "w") as f:
         f.write(f"{card}\ntrain step b8 640x480 bf16: wall {wall_ms:.3f} "

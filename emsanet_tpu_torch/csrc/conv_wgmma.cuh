@@ -1,7 +1,8 @@
-// Hopper building blocks of the bf16 conv kernels of csrc/nbt1d_chain.cu:
-// TMA tensor maps and loads, mbarriers, and warpgroup MMA (`wgmma`).
+// Hopper building blocks of the bf16 conv kernels of csrc/nbt1d_chain.cu
+// and csrc/decoder_trunk.cu: TMA tensor maps and loads, mbarriers, and
+// warpgroup MMA (`wgmma`).
 //
-// Operand layout. Every wgmma operand tile here is K-major with the
+// Operand layout. The chain's wgmma operand tiles are K-major with the
 // 128-byte swizzle: a row (one pixel of A, one output channel of B) holds
 // 64 bf16 values of K (128 bytes), rows follow one another, and a TMA load
 // with CU_TENSOR_MAP_SWIZZLE_128B writes exactly that layout, 16-byte
@@ -12,6 +13,9 @@
 // the hardware applies the swizzle to the final address. Code that writes
 // such a tile with ordinary stores (the fused pair's intermediate) uses
 // `swizzled_offset` and then `fence.proxy.async` before a wgmma reads it.
+// The trunk's B tiles are MN-major (`make_desc_mn`): its weights are
+// stored (K, C_out), and a TMA box of 64 K rows x 64 channels lands as 64
+// rows of 128 bytes, one per K, with the same swizzle.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
@@ -143,7 +147,22 @@ __device__ __forceinline__ uint32_t swizzled_offset(int row, int k) {
   return row * 128 + ((((k >> 3) ^ row) & 7) << 4) + (k & 7) * 2;
 }
 
-// d += A (64 x 16, smem) * B (16 x 64, smem), both K-major, 128B swizzle
+// Descriptor of an MN-major, 128B-swizzled tile at p (1024-byte aligned):
+// one 128-byte row of 64 MN values per K, as a TMA box of 64 x K with the
+// 128-byte swizzle lands; + 2048 bytes per K step of 16. The stride
+// between 8-row groups of K is 1024 bytes; the stride between 64-wide MN
+// groups (a 64-wide tile has one) is given the same value.
+__device__ __forceinline__ uint64_t make_desc_mn(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4)        // start address, 16-byte units
+         | (uint64_t)(1024 >> 4) << 16  // leading byte offset
+         | (uint64_t)(1024 >> 4) << 32  // stride between 8-row groups
+         | (uint64_t)1 << 62;           // 128-byte swizzle
+}
+
+// d += A (64 x 16, smem) * B (16 x 64, smem), 128B swizzle, A K-major, B
+// K-major (kTransB 0) or MN-major (kTransB 1, `make_desc_mn`)
+template <int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
                                                uint64_t db) {
   asm volatile(
@@ -155,7 +174,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
       " %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
+      "%32, %33, p, 1, 1, 0, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -164,7 +183,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(kTransB));
 }
 
 // d += A (64 x 16, smem) * B (16 x 128, smem), both K-major, 128B swizzle

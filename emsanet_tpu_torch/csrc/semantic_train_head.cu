@@ -26,14 +26,14 @@
 // the 49 MB half-res head output and the 9.8 MB int32 labels, the
 // backward also writes the 49 MB dx), against ~30 operations per logit.
 // The design keeps the (N, H, W, C) full-res logits and their gradient out
-// of device memory, as the TPU kernel does: a block stages a 4 x 32 tile
-// of half-res pixels with its halo in shared memory, all classes at once
-// (C <= kMaxLossClasses). The forward, one thread per pixel, makes two
-// passes over the classes (max, target logit and logit sum; then the sum
-// of exp). The backward (redesigned; its notes are above its kernel)
-// forms the softmax statistics once per position and dz a chunk of
-// classes at a time. Block partials go through the fixed-order reduction
-// of common.cuh, so the loss and dkp do not vary from run to run.
+// of device memory, as the TPU kernel does: a block stages a tile of
+// half-res pixels with its halo in shared memory, all classes at once
+// (C <= kMaxLossClasses). Both kernels run a persistent grid of a fixed
+// size per device, type and C (as many blocks as fit at once) that walks
+// the tiles in a fixed order; each block writes one row of partial sums
+// and `reduce_rows` (common.cuh) adds the rows in a fixed order, so the
+// loss and dkp do not vary from run to run. The forward's and the
+// backward's notes are above their kernels.
 //
 // Layouts: x, dx (N, H2, W2, C) NHWC in T; taps (4, 4, C) f32 (common.cuh);
 // target (N, 2 H2, 2 W2) int32; cw (C) f32; gscale one f32 on the device.
@@ -52,126 +52,54 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The 3x3 neighbourhood of a pixel whose top-left neighbour sits at staged
-// position (sy, sx) of a stage `sw` pixels wide, channel k.
-__device__ __forceinline__ void neighbourhood(const float* s, int stride,
-                                              int sw, int sy, int sx, int k,
-                                              float v[3][3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      v[i][j] = s[((sy + i) * sw + sx + j) * stride + k];
-}
-
-// Stage all C channels of the (hh x ww) window at (y0 - halo, x0 - halo),
-// zero outside the image.
-template <typename T>
-__device__ __forceinline__ void stage_window(float* s, const T* x, int img,
-                                             int y0, int x0, int halo,
-                                             int hh, int ww, int h2, int w2,
-                                             int c, int stride) {
-  const int total = hh * ww * c;
-  for (int i = threadIdx.x; i < total; i += kTileThreads) {
-    const int ch = i % c, pix = i / c;
-    const int r = y0 - halo + pix / ww, q = x0 - halo + pix % ww;
-    float v = 0.f;
-    if (r >= 0 && r < h2 && q >= 0 && q < w2)
-      v = ld(x + (((size_t)img * h2 + r) * w2 + q) * c + ch);
-    s[pix * stride + ch] = v;
-  }
-}
-
-struct PixelStats {
-  float m, sumexp, logz, tgt, sum;
-};
-
-// Max, target logit and logit sum (pass 1), then the sum of exp (pass 2)
-// of parity p at the pixel whose neighbourhood starts at (sy, sx).
-template <typename T>
-__device__ __forceinline__ PixelStats pixel_stats(const float* s_x,
-                                                  int stride, int sw, int sy,
-                                                  int sx, const float* taps,
-                                                  int c, int p, int ti) {
-  PixelStats r{__int_as_float(0xff800000), 0.f, 0.f, 0.f, 0.f};  // -inf
-  for (int k = 0; k < c; ++k) {
-    float v[3][3];
-    neighbourhood(s_x, stride, sw, sy, sx, k, v);
-    const float val = parity_value<T>(v, taps + k, c, p);
-    r.m = fmaxf(r.m, val);
-    if (k == ti) r.tgt = val;
-    r.sum += val;
-  }
-  for (int k = 0; k < c; ++k) {
-    float v[3][3];
-    neighbourhood(s_x, stride, sw, sy, sx, k, v);
-    const float val = parity_value<T>(v, taps + k, c, p);
-    r.sumexp += expf(round_to<T>(val - r.m));
-  }
-  r.logz = r.m + logf(r.sumexp);
-  return r;
-}
-
 __device__ __forceinline__ int label_at(const int* target, int img, int h2,
                                         int w2, int y, int x, int p) {
   const int row = 2 * y + (p >> 1), col = 2 * x + (p & 1);
   return target[((size_t)img * 2 * h2 + row) * 2 * w2 + col];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kTileThreads)
-head_loss_fwd_kernel(const T* __restrict__ x, const float* __restrict__ taps,
-                     const int* __restrict__ target,
-                     const float* __restrict__ cw,
-                     float* __restrict__ partials, int h2, int w2, int c,
-                     float ls) {
-  extern __shared__ float smem[];
-  float* s_taps = smem;             // (4, 4, C)
-  float* s_cw = s_taps + 16 * c;    // (C)
-  float* s_x = s_cw + c;            // (kHaloH x kHaloW) pixels, stride
-  __shared__ float s_red[2][kTileThreads / 32];
-  for (int i = threadIdx.x; i < 16 * c; i += kTileThreads) s_taps[i] = taps[i];
-  for (int i = threadIdx.x; i < c; i += kTileThreads) s_cw[i] = cw[i];
-  const int stride = tile_stride(c);
-  const int tx = threadIdx.x % kTileW, ty = threadIdx.x / kTileW;
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
-  const int img = blockIdx.z;
-  stage_window<T>(s_x, x, img, y0, x0, 1, kHaloH, kHaloW, h2, w2, c,
-                  stride);
-  __syncthreads();
-  const int xx = x0 + tx, y = y0 + ty;
-  float wnll = 0.f, wsum = 0.f;
-  if (xx < w2 && y < h2) {
-#pragma unroll 1
-    for (int p = 0; p < 4; ++p) {
-      const int lab = label_at(target, img, h2, w2, y, xx, p);
-      if (lab <= 0) continue;  // void: weight 0
-      const int ti = min(lab - 1, c - 1);
-      const PixelStats st = pixel_stats<T>(s_x, stride, kHaloW, ty, tx,
-                                           s_taps, c, p, ti);
-      float nll = st.logz - st.tgt;
-      if (ls > 0.f)
-        nll = (1.f - ls) * nll + ls * (st.logz - st.sum / (float)c);
-      const float wv = s_cw[ti];
-      wnll += wv * nll;
-      wsum += wv;
+// Stage all C classes of the SH x SW window of half-res pixels at (y0 -
+// halo, x0 - halo) of image img in the storage type T, `stride` elements
+// per pixel, zero outside the image. vec: C a multiple of the 16-byte
+// vector and x 16-byte aligned, so whole vectors are loaded.
+template <typename T, int SH, int SW, int NT>
+__device__ __forceinline__ void stage_window(T* s_x, const T* x, int img,
+                                             int y0, int x0, int halo,
+                                             int h2, int w2, int c,
+                                             int stride, int vec) {
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
+  const int tid = threadIdx.x;
+  if (vec) {
+    const int vpp = c / V;
+    for (int i = tid; i < SH * SW * vpp; i += NT) {
+      const int pix = i / vpp, v = i % vpp;
+      const int r = y0 - halo + pix / SW, q = x0 - halo + pix % SW;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (r >= 0 && r < h2 && q >= 0 && q < w2)
+        val = *reinterpret_cast<const uint4*>(
+            x + (((size_t)img * h2 + r) * w2 + q) * c + v * V);
+      T* dst = s_x + pix * stride + v * V;
+      if constexpr (sizeof(T) == 2) {  // the stride is even
+        unsigned* d = reinterpret_cast<unsigned*>(dst);
+        d[0] = val.x;
+        d[1] = val.y;
+        d[2] = val.z;
+        d[3] = val.w;
+      } else {
+        const T* e = reinterpret_cast<const T*>(&val);
+#pragma unroll
+        for (int j = 0; j < V; ++j) dst[j] = e[j];
+      }
     }
-  }
-  wnll = warp_sum(wnll);
-  wsum = warp_sum(wsum);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    s_red[0][warp] = wnll;
-    s_red[1][warp] = wsum;
-  }
-  __syncthreads();
-  if (threadIdx.x < 2) {
-    float acc = 0.f;
-    for (int i = 0; i < kTileThreads / 32; ++i) acc += s_red[threadIdx.x][i];
-    const size_t blk =
-        ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
-        blockIdx.x;
-    partials[blk * 2 + threadIdx.x] = acc;
+  } else {
+    for (int i = tid; i < SH * SW * c; i += NT) {
+      const int ch = i % c, pix = i / c;
+      const int r = y0 - halo + pix / SW, q = x0 - halo + pix % SW;
+      T v = T(0.f);
+      if (r >= 0 && r < h2 && q >= 0 && q < w2)
+        v = x[(((size_t)img * h2 + r) * w2 + q) * c + ch];
+      s_x[pix * stride + ch] = v;
+    }
   }
 }
 
@@ -344,45 +272,14 @@ head_loss_bwd_kernel(const T* __restrict__ x, const float* __restrict__ taps,
   const int pos = tid / kG, g = tid % kG;
   const int qy = pos / kPosW, qx = pos % kPosW;
   const bool has_pos = pos < kPos;
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int img = tile / (tiles_x * tiles_y);
     const int rem = tile % (tiles_x * tiles_y);
     const int y0 = (rem / tiles_x) * kBH, x0 = (rem % tiles_x) * kBW;
     __syncthreads();  // the previous tile's stage, logits, dz, dx are read
-    if (vec) {  // C a multiple of V, x 16-byte aligned
-      const int vpp = c / V;
-      for (int i = tid; i < kStage * vpp; i += kBwdThreads) {
-        const int pix = i / vpp, v = i % vpp;
-        const int r = y0 - 2 + pix / kStageW, q = x0 - 2 + pix % kStageW;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (r >= 0 && r < h2 && q >= 0 && q < w2)
-          val = *reinterpret_cast<const uint4*>(
-              x + (((size_t)img * h2 + r) * w2 + q) * c + v * V);
-        T* dst = s_x + pix * stride + v * V;
-        if constexpr (sizeof(T) == 2) {  // the stride is even
-          unsigned* d = reinterpret_cast<unsigned*>(dst);
-          d[0] = val.x;
-          d[1] = val.y;
-          d[2] = val.z;
-          d[3] = val.w;
-        } else {
-          const T* e = reinterpret_cast<const T*>(&val);
-#pragma unroll
-          for (int j = 0; j < V; ++j) dst[j] = e[j];
-        }
-      }
-    } else {
-      for (int i = tid; i < kStage * c; i += kBwdThreads) {
-        const int ch = i % c, pix = i / c;
-        const int r = y0 - 2 + pix / kStageW, q = x0 - 2 + pix % kStageW;
-        T v = T(0.f);
-        if (r >= 0 && r < h2 && q >= 0 && q < w2)
-          v = x[(((size_t)img * h2 + r) * w2 + q) * c + ch];
-        s_x[pix * stride + ch] = v;
-      }
-    }
+    stage_window<T, kBH + 4, kStageW, kBwdThreads>(s_x, x, img, y0, x0, 2,
+                                                  h2, w2, c, stride, vec);
     // the thread's position; outside the image or with a void label its
     // weight is 0, so its dz is 0
     float m[4], se[4], wgt[4];
@@ -526,10 +423,167 @@ head_loss_bwd_kernel(const T* __restrict__ x, const float* __restrict__ taps,
   }
 }
 
-// Blocks of the backward's persistent grid: as many as fit on the card.
+// ---- forward ----------------------------------------------------------
+//
+// Redesigned for the H100. The first design (one 4 x 32 tile per block,
+// one thread per pixel looping over the parities at run time) indexed the
+// 3x3 neighbourhood with a run-time parity, so it lived in a 72-byte
+// stack frame, and rebuilt it from shared memory for every class in both
+// passes. Now a persistent grid walks 8 x 32 tiles of half-res pixels in a
+// fixed order, a fixed number of blocks per device, type and C, one
+// thread per half-res position. Per tile:
+// (1) the tile and its 1-pixel halo (10 x 34 pixels, all C classes) are
+//     staged in the storage type T, 16-byte loads where C allows, with an
+//     odd number of 4-byte words per pixel (the 32 positions of a warp hit
+//     distinct banks); the taps are kept class-major and read as float4;
+// (2) pass 1, per class: the 3x3 neighbourhood is loaded once and gives
+//     all four parity logits (compile-time parities: no register array is
+//     indexed at run time, and ptxas gives the kernel no stack frame),
+//     rounded to T as the TPU kernel rounds them; the thread keeps their
+//     max, the target logit and the logit sum. In bf16 the logits are kept
+//     in shared memory, 8 bytes per position and class;
+// (3) pass 2, per class: the sum of exp(round_T(logit - max)), from the
+//     kept logits in bf16, recomputed in f32 (the rounding points of the
+//     reference rule out an online softmax);
+// (4) the thread adds w nll and w of its labelled parities to its running
+//     sums. A position whose four labels are void skips both passes.
+// At the end each block adds its threads' sums in a fixed order and writes
+// one (sum w nll, sum w) row; `reduce_rows` adds the rows in a fixed
+// order, so two calls give the same bits.
+constexpr int kFH = 8, kFW = 32;           // own tile
+constexpr int kFOwn = kFH * kFW;           // positions, one thread each
+constexpr int kFwdThreads = kFOwn;
+constexpr int kFStageW = kFW + 2;          // 1-halo stage: 10 x 34
+constexpr int kFStage = (kFH + 2) * kFStageW;
+
+// Shared memory: the f32 taps and class weights, padded to 16 bytes, then
+// the kept logits (bf16) and the stage, in T.
+__host__ __device__ inline size_t fwd_float_bytes(int c) {
+  return (sizeof(float) * 17 * (size_t)c + 15) / 16 * 16;
+}
+
 template <typename T>
-int bwd_blocks(int c, int tiles) {
-  static int per_sm[65] = {0};
+__host__ __device__ inline size_t fwd_smem_bytes(int c) {
+  return fwd_float_bytes(c) +
+         sizeof(T) * ((kLogitCache<T> ? (size_t)c * kFOwn * 4 : 0) +
+                      (size_t)kFStage * bwd_stride<T>(c));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads)
+head_loss_fwd_kernel(const T* __restrict__ x, const float* __restrict__ taps,
+                     const int* __restrict__ target,
+                     const float* __restrict__ cw,
+                     float* __restrict__ partials, int n, int h2, int w2,
+                     int c, float ls, int vec) {
+  extern __shared__ float4 smem4[];
+  __shared__ float s_red[2][kFwdThreads / 32];
+  const int stride = bwd_stride<T>(c);
+  float* s_tk = reinterpret_cast<float*>(smem4);  // (C, 4 parities, 4 taps)
+  float* s_cw = s_tk + 16 * c;                  // (C)
+  T* s_lg = reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) +
+                                 fwd_float_bytes(c));  // (C, kFOwn, 4)
+  T* s_x = s_lg + (kLogitCache<T> ? c * kFOwn * 4 : 0);  // 1-halo stage
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 16 * c; i += kFwdThreads)
+    s_tk[(i % c) * 16 + i / c] = taps[i];
+  for (int i = tid; i < c; i += kFwdThreads) s_cw[i] = cw[i];
+  const float inv_c = 1.f / (float)c;
+  const int tiles_x = ceil_div(w2, kFW), tiles_y = ceil_div(h2, kFH);
+  const int n_tiles = n * tiles_x * tiles_y;
+  const int ty = tid / kFW, tx = tid % kFW;
+  // the neighbourhood of the thread's position starts at stage (ty, tx)
+  const T* sx = s_x + (ty * kFStageW + tx) * stride;
+  T* lg = s_lg + (size_t)tid * 4;  // class k at lg + k kFOwn 4
+  float wnll = 0.f, wsum = 0.f;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int img = tile / (tiles_x * tiles_y);
+    const int rem = tile % (tiles_x * tiles_y);
+    const int y0 = (rem / tiles_x) * kFH, x0 = (rem % tiles_x) * kFW;
+    __syncthreads();  // the previous tile's stage and logits are read
+    stage_window<T, kFH + 2, kFStageW, kFwdThreads>(s_x, x, img, y0, x0, 1,
+                                                    h2, w2, c, stride, vec);
+    const int y = y0 + ty, xq = x0 + tx;
+    const bool in_img = y < h2 && xq < w2;
+    int lab[4], ti[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      lab[p] = in_img ? label_at(target, img, h2, w2, y, xq, p) : 0;
+      ti[p] = min(max(lab[p] - 1, 0), c - 1);
+    }
+    __syncthreads();  // the stage is complete
+    if (lab[0] <= 0 && lab[1] <= 0 && lab[2] <= 0 && lab[3] <= 0) continue;
+    float m[4], tg[4], sum[4], se[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      m[p] = __int_as_float(0xff800000);  // -inf
+      tg[p] = sum[p] = se[p] = 0.f;
+    }
+    for (int k = 0; k < c; ++k) {
+      float v[3][3], l[4];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          v[i][j] = ld(sx + (i * kFStageW + j) * stride + k);
+      parity_logits<T>(v, s_tk + 16 * k, l);
+      if constexpr (kLogitCache<T>) store_logits(lg + (size_t)k * kFOwn * 4, l);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        m[p] = fmaxf(m[p], l[p]);
+        sum[p] += l[p];
+        tg[p] = k == ti[p] ? l[p] : tg[p];
+      }
+    }
+    for (int k = 0; k < c; ++k) {
+      float l[4];
+      if constexpr (kLogitCache<T>) {
+        load_logits(lg + (size_t)k * kFOwn * 4, l);
+      } else {
+        float v[3][3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            v[i][j] = ld(sx + (i * kFStageW + j) * stride + k);
+        parity_logits<T>(v, s_tk + 16 * k, l);
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p) se[p] += expf(rne<T>(l[p] - m[p]));
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if (lab[p] <= 0) continue;  // void: weight 0
+      const float logz = m[p] + logf(se[p]);
+      float nll = logz - tg[p];
+      if (ls > 0.f)
+        nll = (1.f - ls) * nll + ls * (logz - sum[p] * inv_c);
+      const float wv = s_cw[ti[p]];
+      wnll += wv * nll;
+      wsum += wv;
+    }
+  }
+  wnll = warp_sum(wnll);
+  wsum = warp_sum(wsum);
+  const int warp = tid / 32, lane = tid % 32;
+  if (lane == 0) {
+    s_red[0][warp] = wnll;
+    s_red[1][warp] = wsum;
+  }
+  __syncthreads();
+  if (tid < 2) {
+    float acc = 0.f;
+    for (int i = 0; i < kFwdThreads / 32; ++i) acc += s_red[tid][i];
+    partials[(size_t)blockIdx.x * 2 + tid] = acc;
+  }
+}
+
+// Blocks of a persistent grid: as many as fit on the card at once, a
+// fixed number per device, kernel and C (`per_sm` caches it per C).
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, size_t smem, int* per_sm,
+                    int c, int tiles) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -537,41 +591,39 @@ int bwd_blocks(int c, int tiles) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (per_sm[c] == 0) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm[c], head_loss_bwd_kernel<T>, kBwdThreads,
-        bwd_smem_bytes<T>(c));
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[c], kernel,
+                                                  threads, smem);
     if (per_sm[c] < 1) per_sm[c] = 1;
   }
   const int slots = sms * per_sm[c];
   return tiles < slots ? tiles : slots;
 }
 
-inline int n_tile_blocks(int n, int h2, int w2) {
-  return n * ceil_div(h2, kTileH) * ceil_div(w2, kTileW);
+inline int n_fwd_tiles(int n, int h2, int w2) {
+  return n * ceil_div(h2, kFH) * ceil_div(w2, kFW);
 }
 
 template <typename T>
 int launch_loss_fwd(int n, int h2, int w2, int c, float ls, const void* x,
                     const void* taps, const void* target, const void* cw,
                     void* sums, float* work, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (17 * (size_t)c + kHaloH * kHaloW * tile_stride(c));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        head_loss_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int rows = n_tile_blocks(n, h2, w2);
-  head_loss_fwd_kernel<T>
-      <<<dim3(ceil_div(w2, kTileW), ceil_div(h2, kTileH), n), kTileThreads,
-         smem, stream>>>((const T*)x, (const float*)taps,
-                         (const int*)target, (const float*)cw, work, h2, w2,
-                         c, ls);
+  const size_t smem = fwd_smem_bytes<T>(c);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      head_loss_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  static int per_sm[kMaxLossClasses + 1] = {0};
+  const int blocks = resident_blocks(head_loss_fwd_kernel<T>, kFwdThreads,
+                                     smem, per_sm, c, n_fwd_tiles(n, h2, w2));
+  const int vec = c % (16 / (int)sizeof(T)) == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  head_loss_fwd_kernel<T><<<blocks, kFwdThreads, smem, stream>>>(
+      (const T*)x, (const float*)taps, (const int*)target, (const float*)cw,
+      work, n, h2, w2, c, ls, vec);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return reduce_rows(work, (float*)sums, work + (size_t)rows * 2, rows, 2,
-                     stream);
+  return reduce_rows(work, (float*)sums, work + (size_t)blocks * 2, blocks,
+                     2, stream);
 }
 
 template <typename T>
@@ -584,8 +636,10 @@ int launch_loss_bwd(int n, int h2, int w2, int c, float ls, const void* x,
       head_loss_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const int blocks = bwd_blocks<T>(
-      c, n * ceil_div(h2, kBH) * ceil_div(w2, kBW));
+  static int per_sm[kMaxLossClasses + 1] = {0};
+  const int blocks =
+      resident_blocks(head_loss_bwd_kernel<T>, kBwdThreads, smem, per_sm, c,
+                      n * ceil_div(h2, kBH) * ceil_div(w2, kBW));
   const int vec = c % (16 / (int)sizeof(T)) == 0 &&
                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
   head_loss_bwd_kernel<T><<<blocks, kBwdThreads, smem, stream>>>(
@@ -603,7 +657,7 @@ int launch_loss_bwd(int n, int h2, int w2, int c, float ls, const void* x,
 extern "C" int semantic_train_head_workspace(int n, int h2, int w2, int c) {
   using namespace emsanet;
   const int bwd_rows = n * ceil_div(h2, kBH) * ceil_div(w2, kBW);
-  const int rows = n_tile_blocks(n, h2, w2);
+  const int rows = n_fwd_tiles(n, h2, w2);
   return ((rows > bwd_rows ? rows : bwd_rows) + kReduceSplits) * 16 * c;
 }
 

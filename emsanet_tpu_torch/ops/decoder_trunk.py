@@ -18,12 +18,18 @@ C_in, C), proj_w (D, C_s, C) and the blocks' blk_w31 / blk_w13 (D, K, 2,
 taps of each parity of the x2 upsample (`ops/polyphase_upsample.py::
 parity_taps`; the reference's (D, 2, 2, 3, 3, C) table without its zero
 taps). Feature maps are NHWC.
+
+In bf16 the kernel splits the K loop of a phase whose work items would
+leave blocks of its grid idle (`trunk_plan`); `decoder_trunk_phase_ns`
+runs the same launch with per-phase %globaltimer stamps.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence
+import functools
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +46,12 @@ from emsanet_tpu_torch.ops.stem import fold_bn
 MAX_BATCH = 2
 MAX_MODULES = 4  # csrc/decoder_trunk.cu: kMaxModules
 _CHANNEL_TILE = 64  # output channels of one work item of the kernel
+_PIXEL_TILE = 64  # pixels of one work item
+K_STEP = 64  # input channels of one K step of the bf16 kernel
+# a split of a phase's K loop runs at least this many K steps: below it
+# the split's fixed cost (its first loads, its partial tile) outweighs
+# what a shorter K loop saves
+MIN_SPLIT_STEPS = 4
 
 Module = Dict[str, torch.Tensor]
 
@@ -167,6 +179,102 @@ def decoder_trunk_plain(con_out: torch.Tensor, skips: Sequence[torch.Tensor],
     return torch.stack(outs).to(dt).contiguous()
 
 
+@dataclass(frozen=True)
+class TrunkPhase:
+    """One phase of the kernel: its work items (decoder, 64 pixels, 64
+    output channels), K steps (64 input channels of one tap) and the
+    number of splits of its K loop."""
+    name: str
+    items: int
+    steps: int
+    split: int
+
+    def split_steps(self, s: int) -> Tuple[int, int]:
+        """The K steps [lo, hi) of split s, as the kernel takes them."""
+        return (s * self.steps // self.split,
+                (s + 1) * self.steps // self.split)
+
+
+def _split(items: int, steps: int, grid: int) -> int:
+    """The K split of a phase: items x split fills the grid in one wave,
+    each split keeping at least MIN_SPLIT_STEPS steps (or the whole K
+    loop); a phase with at least as many items as blocks is not split."""
+    if items >= grid:
+        return 1
+    return max(1, min(grid // items, steps // MIN_SPLIT_STEPS))
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_plan(*args) -> Tuple[TrunkPhase, ...]:
+    return tuple(trunk_plan(*args))
+
+
+def trunk_plan(n_dec: int, n: int, h0: int, w0: int, c_context: int,
+               n_channels: Sequence[int], skip_channels: Sequence[int],
+               n_blocks: int, grid: int) -> List[TrunkPhase]:
+    """The kernel's phases in order, with the K split of each for a grid
+    of `grid` blocks: per module conv_in, the 4 n_blocks convs of the
+    NBt1D blocks (all with one split) and the projection + upsample."""
+    phases = []
+    h, w, c_in = h0, w0, c_context
+    for i, (c, cs) in enumerate(zip(n_channels, skip_channels)):
+        items = n_dec * -(-n * h * w // _PIXEL_TILE) * (c // _CHANNEL_TILE)
+        items2 = n_dec * -(-n * 4 * h * w // _PIXEL_TILE) * (
+            c // _CHANNEL_TILE)
+        blk_steps = 3 * -(-c // K_STEP)
+        phases.append(TrunkPhase(f"m{i} conv_in", items,
+                                 9 * -(-c_in // K_STEP), 0))
+        for k in range(n_blocks):
+            for half in range(2):
+                for conv in ("3x1", "1x3"):
+                    phases.append(TrunkPhase(f"m{i} b{k}.{half} {conv}",
+                                             items, blk_steps, 0))
+        phases.append(TrunkPhase(f"m{i} proj+up", items2,
+                                 -(-cs // K_STEP), 0))
+        h, w, c_in = 2 * h, 2 * w, c
+    return [TrunkPhase(p.name, p.items, p.steps,
+                       _split(p.items, p.steps, grid)) for p in phases]
+
+
+def plan_workspace(phases: Sequence[TrunkPhase]) -> Tuple[int, int]:
+    """(f32 partials, tickets) the split phases need: one 64 x 64 partial
+    tile per unit of the largest split phase, one ticket per item."""
+    split = [p for p in phases if p.split > 1]
+    return (max([p.items * p.split * _PIXEL_TILE * _CHANNEL_TILE
+                 for p in split] or [0]),
+            max([p.items for p in split] or [0]))
+
+
+_GRID: Dict[Tuple[int, bool], int] = {}
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _grid_blocks(device: torch.device, bf16: bool) -> int:
+    """Blocks of the kernel's cooperative grid on `device` (the kernel's
+    own count: as many as fit on the card at once)."""
+    key = (device.index or 0, bf16)
+    if key not in _GRID:
+        fn = _native.bind("decoder_trunk", "decoder_trunk_grid", 1,
+                          int_args=[0])
+        with torch.cuda.device(device):
+            blocks = fn(int(bf16))
+        if blocks <= 0:
+            _native.check(-blocks, "decoder_trunk (occupancy)")
+        _GRID[key] = blocks
+    return _GRID[key]
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The split phases' tickets for the current stream of `device`:
+    zeroed once; each launch leaves them at zero again."""
+    key = (device.index or 0, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
 _WEIGHT_KEYS = ("cin_w", "blk_w31", "blk_w13", "proj_w")
 # every tensor of a module's entry, in the order of the kernel's fields
 _FIELD_KEYS = ("cin_w", "cin_s", "cin_t", "blk_w31", "blk_w13", "blk_b31",
@@ -205,6 +313,44 @@ def decoder_trunk(con_out: torch.Tensor, skips: Sequence[torch.Tensor],
     2^M H0, 2^M W0, C_last), each decoder's head input."""
     if not con_out.is_cuda:
         return decoder_trunk_plain(con_out, skips, per_module)
+    return _launch(con_out, skips, per_module, None)[0]
+
+
+# %globaltimer stamps per phase (csrc/decoder_trunk.cu kStampRow): its
+# start, the last block's end of work, then block 0's first unit
+STAMP_ROW = 8
+UNIT_STEPS = ("loads issued", "first stage", "K loop", "ticket",
+              "partials added", "epilogue")
+
+
+def decoder_trunk_phase_ns(con_out: torch.Tensor,
+                           skips: Sequence[torch.Tensor],
+                           per_module: Sequence[Module]):
+    """One launch of the kernel with phase stamps (CUDA tensors only):
+    returns (output, one dict per phase). A phase's `work` runs from its
+    start (after the previous grid barrier) until its last block finished
+    its units, its `wait` until the next phase started; `unit` gives the
+    times (from the phase's start) at which block 0 passed the steps of
+    UNIT_STEPS in its first unit of a bf16 phase, None where it did not
+    (a split that drew no last ticket, a block without a unit). All in
+    nanoseconds."""
+    n_phases = len(per_module) * (2 + 4 * per_module[0]["blk_w31"].shape[1])
+    stamps = torch.zeros(STAMP_ROW * n_phases + 1, dtype=torch.int64,
+                         device=con_out.device)
+    out, phases = _launch(con_out, skips, per_module, stamps)
+    st = stamps.tolist()
+    rows = []
+    for i, p in enumerate(phases):
+        row = st[STAMP_ROW * i:STAMP_ROW * (i + 1)]
+        rows.append({
+            "phase": p.name, "work": row[1] - row[0],
+            "wait": st[STAMP_ROW * (i + 1)] - row[1],
+            "unit": [v - row[0] if v else None for v in row[2:]]})
+    return out, rows
+
+
+def _launch(con_out, skips, per_module, stamps: Optional[torch.Tensor]):
+    """Checks, plans and launches the kernel; (output, phases)."""
     dtypes = (torch.float32, torch.bfloat16)
     _native.require_cuda_tensor(con_out, "con_out", dtypes, 4)
     dt = con_out.dtype
@@ -241,11 +387,24 @@ def decoder_trunk(con_out: torch.Tensor, skips: Sequence[torch.Tensor],
     mid = torch.empty(d * max([n * 4 * gh * gw * gc
                                for gh, gw, _, gc, _ in geoms[:-1]] or [0]),
                       dtype=dt, device=con_out.device)
+    bf16 = dt == torch.bfloat16
+    g0 = geoms[0]
+    phases = _cached_plan(d, n, g0[0], g0[1], g0[2],
+                          tuple(g[3] for g in geoms),
+                          tuple(g[4] for g in geoms), k,
+                          _grid_blocks(con_out.device, bf16) if bf16 else 1)
+    ws_floats, n_tickets = plan_workspace(phases)
+    ws = torch.empty(max(ws_floats, 1), dtype=torch.float32,
+                     device=con_out.device)
+    tickets = _tickets(con_out.device, n_tickets)
     args = [d, n, k, len(geoms), con_out.data_ptr(),
-            *(scratch[j].data_ptr() for j in range(3))]
+            *(scratch[j].data_ptr() for j in range(3)), ws.data_ptr(),
+            tickets.data_ptr(), 0 if stamps is None else stamps.data_ptr()]
+    per = 2 + 4 * k  # phases per module
     for i, ((gh, gw, gc_in, gc, gcs), m) in enumerate(zip(geoms,
                                                            per_module)):
         args += [gh, gw, gc_in, gc, gcs,
+                 *(phases[per * i + j].split for j in (0, 1, per - 1)),
                  *(m[key].data_ptr() for key in _FIELD_KEYS),
                  skips[i].data_ptr(), m["proj_w"].data_ptr(),
                  m["proj_s"].data_ptr(), m["proj_t"].data_ptr(),
@@ -253,11 +412,11 @@ def decoder_trunk(con_out: torch.Tensor, skips: Sequence[torch.Tensor],
     packed = (ctypes.c_longlong * len(args))(*args)
     fn = _native.bind("decoder_trunk", "decoder_trunk_launch", 3,
                       int_args=[0])
-    err = fn(int(dt == torch.bfloat16), ctypes.addressof(packed),
+    err = fn(int(bf16), ctypes.addressof(packed),
              _native.stream_ptr(con_out))
     _DECODER_TRUNK.launches += 1
     _native.check(err, "decoder_trunk")
-    return out
+    return out, phases
 
 
 # the launch count lives on the function object; the body reaches it

@@ -32,8 +32,9 @@ that reaches 1.2e-4 of the sums; on the flagship's 153600 it stays under
 Semantic head loss: loss
 bf16 1e-2 / f32 1e-5 (the kernel rounds the summed polyphase taps to
 bf16, the plain conv each 3x3 tap); dx 5e-2 / 1e-4, dweight 5e-2 / 1e-3.
-The bf16 chain and the head-loss backward add their partial sums in a
-fixed order: two calls give the same bits.
+The bf16 chain, the bf16 decoder trunk (split K) and the head-loss
+forward and backward add their partial sums in a fixed order: two calls
+give the same bits.
 """
 
 import numpy as np
@@ -327,14 +328,23 @@ def _trunk_case(seed, n_dec, n, h0, w0, c0, chans, skip_chans, k, dtype):
     return ctx, skips, per_module
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", [
+_TRUNK_CASES = [
     # small: D 2, b2, a 2x5 context, K 2 (C_s 8: a K chunk of one 8-wide
-    # channel group, zero-filled past it)
+    # channel group, zero-filled past it; bf16 splits that divide neither
+    # the K steps nor the tiles evenly)
     (2, 2, 2, 5, 64, (128, 64, 64), (32, 16, 8), 2),
     # the flagship at b1: 15x20x512 context, skips 256 / 128 / 64, K 3
     (2, 1, 15, 20, 512, (512, 256, 128), (256, 128, 64), 3),
-])
+    # the flagship at b2
+    (2, 2, 15, 20, 512, (512, 256, 128), (256, 128, 64), 3),
+    # the flagship's widths on a 2x2 context: every phase has a few items,
+    # so bf16 splits every K loop
+    (2, 1, 2, 2, 512, (512, 256, 128), (256, 128, 64), 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _TRUNK_CASES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 5e-2)])
 def test_cuda_decoder_trunk_matches_plain(case, dtype, tol):
@@ -350,6 +360,27 @@ def test_cuda_decoder_trunk_matches_plain(case, dtype, tol):
     assert tuple(got.shape) == (n_dec, n, 8 * h0, 8 * w0, chans[-1])
     assert bool(torch.isfinite(got).all())
     assert _rel(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _TRUNK_CASES)
+def test_cuda_decoder_trunk_bf16_repeats_bitwise(case):
+    """Split partials are added in split order: two calls give the same
+    bits, and a launch with phase stamps the same output."""
+    _need_cuda()
+    ctx, skips, per_module = _trunk_case(19, *case, torch.bfloat16)
+    first = decoder_trunk.decoder_trunk(ctx, skips, per_module)
+    again = decoder_trunk.decoder_trunk(ctx, skips, per_module)
+    stamped, phases = decoder_trunk.decoder_trunk_phase_ns(ctx, skips,
+                                                           per_module)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(first, stamped)
+    assert len(phases) == len(case[5]) * (2 + 4 * case[7])
+    assert all(p["work"] > 0 and p["wait"] >= 0 for p in phases)
+    for p in phases:  # block 0's first unit: its steps in order
+        seen = [v for v in p["unit"] if v is not None]
+        assert seen and seen == sorted(seen) and seen[-1] <= p["work"]
 
 
 # ---------------------------------------------------------------------------
@@ -615,6 +646,27 @@ def test_cuda_semantic_head_loss_bwd_chunks(shape, void, dtype, dxtol, dktol):
     assert _rel(dx, wdx) <= dxtol
     assert _rel(dw, wdw) <= dktol
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 60, 80, 40), (1, 20, 30, 13),
+                                   (1, 5, 7, 64), (2, 33, 70, 64)])
+@pytest.mark.parametrize("void", [0.2, 0.9])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_cuda_semantic_head_loss_fwd_repeats(shape, void, dtype, tol):
+    """The forward's persistent grid over 8 x 32 tiles: ragged maps, C up
+    to 64, void-heavy labels (most positions skip both passes). Block
+    sums are added in a fixed order: two calls give the same bits."""
+    _need_cuda()
+    x, w, tgt, cw = _loss_case(20, *shape, dtype, void=void)
+    s, wsum = semantic_train_head.head_loss_fwd(x, w, tgt, cw, 0.1)
+    s2, wsum2 = semantic_train_head.head_loss_fwd(x, w, tgt, cw, 0.1)
+    ws, wwsum = semantic_train_head.head_loss_fwd_plain(x, w, tgt, cw, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s2) and torch.equal(wsum, wsum2)
+    assert _rel(s / wsum, ws / wwsum) <= tol
+    assert _rel(wsum, wwsum) <= 1e-6
 
 
 @pytest.mark.cuda
