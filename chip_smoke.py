@@ -6,9 +6,11 @@
 Phases (any failure exits non-zero and prints no result):
   1. build: compile every kernel of `emsanet_tpu_torch/csrc` (one nvcc per
      source, all at once); `ptxas` must give both instantiations (bf16,
-     f32) of the head-loss forward and backward kernels and of the decoder
-     trunk kernel a 0-byte stack frame; their registers and shared memory
-     are logged.
+     f32) of the head-loss forward and backward kernels, the decoder
+     trunk kernel, the stem kernel and the semantic decode kernel a
+     0-byte stack frame; their registers and shared memory are logged.
+     The bf16 stem's SASS (`cuobjdump -sass` of the built library) must
+     hold tensor-core instructions (HMMA or HGMMA).
   2. main path, per head mode (`interleave`, `decode`, `decode-both`,
      `decode-planes`): the flagship frame (R34-NBt1D dual encoder,
      semantic + instance + orientation + scene, panoptic; 640x480, bf16,
@@ -22,7 +24,9 @@ Phases (any failure exits non-zero and prints no result):
      way.
   3. kernels vs plain: every kernel against its plain PyTorch version on
      the captured inputs of every mode, in bf16 and again in f32 (TF32
-     off), with the tolerances below.
+     off), with the tolerances below. The stem and the semantic decode
+     must give the same bits in two calls on each of the decode-planes
+     b8 frame's inputs.
   4. outputs: finite values of the expected shapes; a small b2 frame
      (96x128, R18, f32; no head defers there), once with 'auto' (the
      card takes the trunk kernel, the CPU the unfused decoders) and once
@@ -63,7 +67,8 @@ Phases (any failure exits non-zero and prints no result):
      now and then drops a kernel's records: a frame whose trace lacks a
      required kernel is profiled again, up to PROFILE_ATTEMPTS times); the
      device time of each kernel that has a library yardstick beside that
-     call's.
+     call's; every kernel's device time at b1 and b8 on the calls that
+     give its "ms_b1" / "ms_b8".
  6b. chain sites (logged): one line per chain call of the decode-planes
      b1 and b8 frames: C, map, batch, blocks, pair launches, wrapper and
      device ms, bound, TFLOP/s, and cuDNN's convs alone (F.conv2d 3x1
@@ -125,10 +130,15 @@ this network moves by ~1e-2 when its input moves by 1e-6
 (tests/test_torch_port_train.py), so element-wise bounds on them would
 measure that, not the kernels.
 
-Output: progress lines, the card's name and power limit, one JSON line
+Output: progress lines (also written to chiprun_out/chip_smoke.log), the
+card's name and power limit, one JSON line
 {"kernels": [...]} (each entry's "ms" at the batch it names: b8, and b1
-for the trunk, which the 'auto' gate runs only there) and, last,
-{"ok": true, "device": {...}}.
+for the trunk, which the 'auto' gate runs only there; beside it
+"ms_b1" / "ms_b8", the wrapper's CUDA-event ms at each batch, and
+"device_ms_b1" / "device_ms_b8", torch.profiler's device ms of the same
+calls; the trunk's b8 numbers are phase 5b's 'on' call; the train
+kernels run at b8 only, their b1 keys are null and their b8 device ms
+comes from the profiled step) and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -231,11 +241,26 @@ PROFILE_ATTEMPTS = 3
 # (source, kernel) whose instantiations ptxas must give no stack frame
 STACK_FREE = (("semantic_train_head", "head_loss_fwd_kernel"),
               ("semantic_train_head", "head_loss_bwd_kernel"),
-              ("decoder_trunk", "decoder_trunk_kernel"))
+              ("decoder_trunk", "decoder_trunk_kernel"),
+              ("stem", "stem_kernel"),
+              ("semantic_decode", "semantic_decode_kernel"))
+# the bf16 stem must run on the tensor cores: its SASS (cuobjdump of the
+# built library) must hold mma instructions
+TENSOR_CORE_SASS = (("stem", "stem_kernel", "__nv_bfloat16"),)
+TENSOR_CORE_OPS = ("HMMA", "HGMMA")
+# kernels whose two calls on the flagship b8 frame's inputs must give the
+# same bits (no atomics; a fixed order of every sum)
+REPEAT_KERNELS = ("fused_stems", "semantic_decode")
+
+
+LOG_FILE = os.path.join(OUT_DIR, "chip_smoke.log")  # the whole log
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if os.path.isdir(OUT_DIR):
+        with open(LOG_FILE, "a") as f:
+            f.write(msg + "\n")
 
 
 def gpu_name_and_limit() -> str:
@@ -317,7 +342,9 @@ def kernel_spec(name, args, kwargs, ops_mod):
         ops = sum(2 * 64 * x.shape[3] * 49 * x.shape[0]
                   * ((x.shape[1] + 1) // 2) * ((x.shape[2] + 1) // 2)
                   for x in xs)
-        byts = _nbytes(*xs) + sum(w.numel() * 4 for w in ws) + outs_b
+        # the kernel reads its weights in the compute dtype
+        byts = (_nbytes(*xs) + outs_b
+                + sum(w.numel() * xs[0].element_size() for w in ws))
         return (lambda: stem.fused_stems(xs, ws, bns),
                 lambda: stem.fused_stems_plain(xs, ws, bns), None,
                 byts, ops, str(xs[0].dtype).split(".")[1])
@@ -586,6 +613,7 @@ def run() -> int:
     ops_mod = (stem, nbt1d_chain, grouping, segment_kernels, semantic_decode,
                instance_head, plane_interleave, decoder_trunk)
     os.makedirs(OUT_DIR, exist_ok=True)
+    open(LOG_FILE, "w").close()
     card = gpu_name_and_limit()
     t_start = time.time()
 
@@ -609,6 +637,13 @@ def run() -> int:
             raise AssertionError(f"{kernel}: stack frames "
                                  f"{[p['stack'] for p in props]}, expected "
                                  "0 bytes for both instantiations")
+    for src, kernel, inst in TENSOR_CORE_SASS:
+        n_mma = sass_mma_count(_native._target(src), kernel, inst)
+        log(f"[build] SASS of {kernel}<{inst}>: {n_mma} tensor-core "
+            f"instructions ({'/'.join(TENSOR_CORE_OPS)})")
+        if n_mma <= 0:
+            raise AssertionError(f"{kernel}<{inst}> has no tensor-core "
+                                 "instruction in its SASS")
 
     # -- 2. main path, 3. kernels vs plain: mode by mode --------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -668,6 +703,16 @@ def run() -> int:
         del calls
         check_outputs(results[mode], mode)
     log(f"[kernels vs plain] worst errors: {json.dumps(errors)}")
+    for name in REPEAT_KERNELS:
+        for args, kwargs in captured[TIMING_MODE, name, 8]:
+            kfn = kernel_spec(name, args, kwargs, ops_mod)[0]
+            first, again = kfn(), kfn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"{name}: two calls on the {TIMING_MODE}"
+                                     " b8 frame's inputs differ")
+        log(f"[kernel repeats] {name}: two calls on each of the "
+            f"{TIMING_MODE} b8 frame's inputs are bit-identical")
 
     r8 = results[TIMING_MODE][8]
     log(f"[outputs] {TIMING_MODE} b8: valid centers per image "
@@ -747,8 +792,7 @@ def run() -> int:
                     per_b[f"{mode}/b{b}/{key}"] = tot
         detail[name] = per_b
         eb = ENTRY_BATCH.get(name, 8)
-        at = [t for k, t in per_b.items()
-              if k.startswith(f"{TIMING_MODE}/b{eb}/")][0]
+        at = _timed_at(per_b, eb)
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": total[name],
@@ -756,6 +800,9 @@ def run() -> int:
             "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"], "batch": eb,
+            # both batches; the device times are filled in by phase 6
+            **{f"ms_b{b}": (_timed_at(per_b, b) or {}).get("ms")
+               for b in BATCHES},
         })
     for name, per_b in detail.items():
         for key, t in per_b.items():
@@ -770,6 +817,10 @@ def run() -> int:
     # -- 5b. the trunk on vs off (logged, not gated), timed before any
     # profiler has run in the process -------------------------------------
     trunk_report = trunk_on_off(torch, frames[TIMING_MODE], ops_mod, card)
+    for e in entries:  # the 'auto' frames run the trunk at b1 only
+        if e["name"] == "decoder_trunk":
+            e["ms_b8"] = trunk_report["kernel_b8"]["ms"]
+            e["device_ms_b8"] = trunk_report["kernel_b8"]["device_ms"]
 
     # -- 6. profile ----------------------------------------------------------
     busy = {}
@@ -827,6 +878,20 @@ def run() -> int:
         log(f"[device time] {name}: kernel "
             f"{library_device[name]['device_ms']:.4f} ms, library "
             f"{library_device[name]['library_device_ms']:.4f} ms")
+    # every kernel's device time at b1 and b8: the calls its "ms_bN" sums
+    for e in entries:
+        for b in BATCHES:
+            if e.get(f"device_ms_b{b}") is not None:
+                continue
+            calls = [(a, k) for a, k in captured.get(
+                (TIMING_MODE, e["name"], b), [])
+                if _variant(e["name"], a) == _timed_key(detail[e["name"]], b)]
+            e[f"device_ms_b{b}"] = sum(
+                device_ms(kernel_spec(e["name"], a, k, ops_mod)[0])
+                for a, k in calls) if calls else None
+        log(f"[kernel b1/b8] {e['name']}: " + "; ".join(
+            f"b{b} ms {_ms(e[f'ms_b{b}'])} device {_ms(e[f'device_ms_b{b}'])}"
+            for b in BATCHES))
     chain_report = chain_sites(torch, captured, ops_mod, card)
     # -- 7. train -------------------------------------------------------------
     del frames, captured, results
@@ -849,6 +914,41 @@ def run() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _ms(v):
+    return "-" if v is None else f"{v:.4f}"
+
+
+def _timed_key(per_b, b):
+    """The variant whose calls give a kernel's times at batch b: the first
+    one of the timing mode's (planes for the semantic decode and the
+    instance head), or None where the batch does not run the kernel."""
+    keys = [k for k in per_b if k.startswith(f"{TIMING_MODE}/b{b}/")]
+    return keys[0].rsplit("/", 1)[1] if keys else None
+
+
+def _timed_at(per_b, b):
+    key = _timed_key(per_b, b)
+    return per_b[f"{TIMING_MODE}/b{b}/{key}"] if key else None
+
+
+def sass_mma_count(lib_path, kernel, inst):
+    """Tensor-core instructions (TENSOR_CORE_OPS) in the SASS of the
+    instantiation of `kernel` for `inst` in a built library
+    (`cuobjdump -sass`)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line and inst in line
+        elif inside:
+            count += sum(line.count(op) for op in TENSOR_CORE_OPS)
+    return count
 
 
 def _variant(name, args):
@@ -1679,6 +1779,10 @@ def train_phase(torch, card):
             "max_abs_err": max_abs[name], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": None, "batch": 8,
+            # the step runs at b8 only; device time from the profiled step
+            "ms_b1": None, "ms_b8": tot["ms"], "device_ms_b1": None,
+            "device_ms_b8": (pair_dev.get(name) or report.get(
+                "head_loss_device_ms", {}).get(f"{name}_kernel") or None),
         }
         if name in PAIR_DEVICE_KERNELS:
             entry.update(tflops=tot["ops"] / tot["ms"] / 1e9,

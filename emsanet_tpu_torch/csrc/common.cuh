@@ -64,10 +64,11 @@ inline int reduce_rows(const float* in, float* out, float* tmp, int rows,
 
 // The final learned x2 stage (nearest x2 + zero-padded depthwise 3x3) in
 // its polyphase form, for the kernels that fuse it with their consumer
-// (semantic_decode.cu, instance_head.cu). Output parity p = pr*2 + pc of
-// half-res pixel (y, x) is full-res pixel (2y+pr, 2x+pc). It reads the
-// four inputs at rows y-1+pr+{0,1} and columns x-1+pc+{0,1}, each with
-// its own parity weight; the other five taps of the 3x3 are zero.
+// (instance_head.cu; semantic_decode.cu reads the same taps). Output
+// parity p = pr*2 + pc of half-res pixel (y, x) is full-res pixel
+// (2y+pr, 2x+pc). It reads the four inputs at rows y-1+pr+{0,1} and
+// columns x-1+pc+{0,1}, each with its own parity weight; the other five
+// taps of the 3x3 are zero.
 //
 // Input x is NHWC (N, H2, W2, C). The parity weights are (4 parities,
 // 4 taps, C) f32, tap t = a*2 + b for row y-1+pr+a and column x-1+pc+b:

@@ -1,5 +1,5 @@
-// bf16 tensor-core helpers of the Ampere generation: 16-byte cp.async
-// copies (through L2, zero-filling an invalid source), ldmatrix and
+// bf16 tensor-core helpers of the Ampere generation: 16- and 4-byte
+// cp.async copies (zero-filling an invalid source), ldmatrix and
 // mma.sync m16n8k16 with f32 accumulators. csrc/nbt1d_train.cu builds its
 // convs from all of them; csrc/decoder_trunk.cu feeds its wgmma A tiles
 // with the cp.async copies.
@@ -22,6 +22,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4-byte async copy (through L1); valid = false fills the destination
+// with zeros.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

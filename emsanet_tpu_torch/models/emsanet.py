@@ -34,6 +34,7 @@ from emsanet_tpu_torch.models.decoder import (
 )
 from emsanet_tpu_torch.models.encoder import FusedEncoder
 from emsanet_tpu_torch.ops import decoder_trunk as trunk_ops
+from emsanet_tpu_torch.ops import param_cache
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _SKIP_CHANNELS = {4: 64, 8: 128, 16: 256, 32: 512}
@@ -188,23 +189,18 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def _cached_trunk_params(decoders, dtype: torch.dtype):
-    """`stack_trunk_params`, kept on the first decoder between calls.
+    """`stack_trunk_params`, kept on the first decoder between calls
+    (`param_cache`: rebuilt when a tensor moves or is written in place).
 
     Stacking and folding is ~40 small ops per decoder module; on every
-    frame their launches would cost more than the kernel saves. The key
-    holds every trunk tensor's storage address and in-place version
-    counter (as `layers._cached_chain_params`), so loading new weights or
-    moving the model rebuilds it.
+    frame their launches would cost more than the kernel saves.
     """
     mods = [getattr(dec, f"module{i}") for dec in decoders
             for i in range(dec.n_modules)]
     tensors = [t for m in mods for t in (*m.parameters(), *m.buffers())]
-    key = (dtype, tuple((t.data_ptr(), t._version) for t in tensors))
-    cached = getattr(decoders[0], "_trunk_cache", None)
-    if cached is None or cached[0] != key:
-        cached = (key, trunk_ops.stack_trunk_params(decoders, dtype))
-        decoders[0]._trunk_cache = cached
-    return cached[1]
+    return param_cache.cached(
+        decoders[0], ("trunk", dtype), tensors,
+        lambda: trunk_ops.stack_trunk_params(decoders, dtype))
 
 
 def build_model(

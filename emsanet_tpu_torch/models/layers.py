@@ -28,6 +28,7 @@ from torch import nn
 
 from emsanet_tpu_torch.ops import nbt1d_chain as chain_ops
 from emsanet_tpu_torch.ops import nbt1d_train as train_ops
+from emsanet_tpu_torch.ops import param_cache
 from emsanet_tpu_torch.ops.stem import BN_EPS, fold_bn
 
 # flax: running = momentum * running + (1 - momentum) * batch
@@ -352,22 +353,19 @@ def apply_blocks_fused(blocks: Sequence[nn.Module], x: torch.Tensor,
 
 def _cached_chain_params(tail: Sequence[NonBottleneck1D],
                          dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """`stack_chain_params`, kept on the tail's first block between calls.
+    """`stack_chain_params`, kept on the tail's first block between calls
+    (`param_cache`: rebuilt when a tensor moves or is written in place).
 
     Stacking and folding is ~30 small ops per chain; at batch 1 their
-    launches cost more than the chain. The cache key holds every tensor's
-    storage address and in-place version counter, so loading new weights
-    or moving the model rebuilds it. In bf16 it also holds the kernel's
+    launches cost more than the chain. In bf16 it also holds the kernel's
     K-major weights (`wt`).
     """
-    tensors = [t for b in tail for t in
-               list(b.parameters()) + list(b.buffers())]
-    key = (dtype, tuple((t.data_ptr(), t._version) for t in tensors))
-    cached = getattr(tail[0], "_chain_cache", None)
-    if cached is None or cached[0] != key:
+    def build():
         stacked = stack_chain_params(tail, dtype)
         if dtype == torch.bfloat16:
             stacked["wt"] = chain_ops.kmajor_weights(stacked, dtype)
-        cached = (key, stacked)
-        tail[0]._chain_cache = cached
-    return cached[1]
+        return stacked
+
+    tensors = [t for b in tail for t in
+               list(b.parameters()) + list(b.buffers())]
+    return param_cache.cached(tail[0], ("chain", dtype), tensors, build)

@@ -22,7 +22,7 @@ from typing import Tuple
 
 import torch
 
-from emsanet_tpu_torch.ops import _native
+from emsanet_tpu_torch.ops import _native, param_cache
 from emsanet_tpu_torch.ops.plane_interleave import interleave_plane
 from emsanet_tpu_torch.ops.polyphase_upsample import (
     parity_taps,
@@ -71,6 +71,15 @@ def bf16_near_ties(x: torch.Tensor, weight: torch.Tensor,
     return interleave_plane(near) if interleaved else near
 
 
+def cached_parity_taps(weight: torch.Tensor, dtype: torch.dtype,
+                       device: torch.device) -> torch.Tensor:
+    """`parity_taps` of the weight on `device`, built once per weight
+    version (`param_cache`)."""
+    return param_cache.cached(
+        weight.untyped_storage(), ("parity_taps", dtype, device), [weight],
+        lambda: parity_taps(weight.detach().to(device), dtype))
+
+
 def semantic_decode(
     x: torch.Tensor, weight: torch.Tensor, interleaved: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -86,7 +95,7 @@ def semantic_decode(
         raise ValueError(f"semantic_decode: x (N, H/2, W/2, C) with C <= "
                          f"{MAX_CLASSES} and weight (C, 1, 3, 3), got "
                          f"{tuple(x.shape)} and {tuple(weight.shape)}")
-    taps = parity_taps(weight.detach().to(x.device), x.dtype)
+    taps = cached_parity_taps(weight, x.dtype, x.device)
     shape = (n, 2 * h2, 2 * w2) if interleaved else (n, 4, h2, w2)
     idx = torch.empty(shape, device=x.device, dtype=torch.int32)
     score = torch.empty(shape, device=x.device, dtype=torch.float32)

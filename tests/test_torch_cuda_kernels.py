@@ -33,8 +33,9 @@ Semantic head loss: loss
 bf16 1e-2 / f32 1e-5 (the kernel rounds the summed polyphase taps to
 bf16, the plain conv each 3x3 tap); dx 5e-2 / 1e-4, dweight 5e-2 / 1e-3.
 The bf16 chain, the bf16 decoder trunk (split K) and the head-loss
-forward and backward add their partial sums in a fixed order: two calls
-give the same bits.
+forward and backward add their partial sums in a fixed order, and the
+stem and the semantic decode sum each output in a fixed order: two
+calls give the same bits.
 """
 
 import numpy as np
@@ -66,12 +67,26 @@ def _bn(rng, c):
             rng.rand(c).astype(np.float32) + 0.5)
 
 
-def _stem_case(seed, n, h, w):
+def _stem_case(seed, n, h, w, chans=(3, 1)):
     rng = np.random.RandomState(seed)
-    xs = [rng.randn(n, h, w, c).astype(np.float32) for c in (3, 1)]
-    k7s = [(rng.randn(7, 7, c, 64) * 0.1).astype(np.float32) for c in (3, 1)]
-    bns = [_bn(rng, 64) for _ in range(2)]
+    xs = [rng.randn(n, h, w, c).astype(np.float32) for c in chans]
+    k7s = [(rng.randn(7, 7, c, 64) * 0.1).astype(np.float32) for c in chans]
+    bns = [_bn(rng, 64) for _ in chans]
     return xs, k7s, bns
+
+
+def _stem_run(fn, xs, k7s, bns, dtype, plain=False):
+    """fn (the kernel or the plain version) on the case's tensors on the
+    card; the plain version takes the weights in the compute dtype."""
+    return fn([_t(x).cuda().to(dtype) for x in xs],
+              [_t(k.transpose(3, 2, 0, 1)).cuda().to(
+                  dtype if plain else torch.float32) for k in k7s],
+              [tuple(_t(p).cuda() for p in bn) for bn in bns])
+
+
+def _stem_err(got, want):
+    return max(float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max()) for g, w in zip(got, want))
 
 
 def _chain_case(seed, k, c, shape):
@@ -143,6 +158,63 @@ def test_cuda_stem_matches_plain(dtype, tol):
     for g, wnt in zip(got, want):
         err = (g.float() - wnt.float()).abs().max() / wnt.float().abs().max()
         assert float(err) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w", [(2, 480, 640),
+                                   # H, W not multiples of any tile, odd W
+                                   (1, 123, 77), (2, 61, 90)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_stem_shapes_match_plain(n, h, w, dtype, tol):
+    _need_cuda()
+    case = _stem_case(13, n, h, w)
+    got = _stem_run(stem.fused_stems, *case, dtype)
+    want = _stem_run(stem.fused_stems_plain, *case, dtype, plain=True)
+    assert [tuple(g.shape) for g in got] == [tuple(x.shape) for x in want]
+    assert _stem_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chans", [(3,), (1,), (2,), (4,), (4, 3), (2, 1)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_stem_channels_match_plain(chans, dtype, tol):
+    """One modality or two, with C = 1..4 (4C packed slots; odd C stages
+    a second, shifted copy of the tile)."""
+    _need_cuda()
+    case = _stem_case(14, 2, 64, 96, chans)
+    got = _stem_run(stem.fused_stems, *case, dtype)
+    want = _stem_run(stem.fused_stems_plain, *case, dtype, plain=True)
+    assert len(got) == len(chans)
+    assert _stem_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chans", [(4, 3), (3, 4), (2, 1), (1, 2), (3, 1)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_stem_modality_switch_matches_plain(chans, dtype, tol):
+    """Two modalities at 480x640 b2: 880 tiles, so every block of the
+    persistent bf16 grid stages several tiles ahead into its second buffer,
+    and some switch modality mid-run. A staging buffer holds a tile of
+    either modality (in_bytes(3) > in_bytes(4), in_bytes(1) >
+    in_bytes(2))."""
+    _need_cuda()
+    case = _stem_case(16, 2, 480, 640, chans)
+    got = _stem_run(stem.fused_stems, *case, dtype)
+    want = _stem_run(stem.fused_stems_plain, *case, dtype, plain=True)
+    assert _stem_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_stem_repeats_bitwise(dtype):
+    _need_cuda()
+    case = _stem_case(15, 2, 480, 640)
+    first = _stem_run(stem.fused_stems, *case, dtype)
+    again = _stem_run(stem.fused_stems, *case, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda
@@ -221,9 +293,10 @@ def test_cuda_grouping_and_segments_match_plain():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 60, 80, 40), (1, 33, 70, 37),
-                                   (1, 8, 12, 5),
-                                   # more classes than one staged chunk;
-                                   # 512 needs > 48 KB of shared memory
+                                   (1, 8, 12, 5), (1, 17, 31, 19),
+                                   (1, 6, 9, 16),
+                                   # many 8-class stages; at 512 the f32
+                                   # kernel needs > 48 KB of shared memory
                                    (1, 9, 40, 100), (1, 5, 33, 512)])
 @pytest.mark.parametrize("interleaved", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -247,6 +320,18 @@ def test_cuda_semantic_decode_matches_plain(shape, interleaved, dtype):
         near = semantic_decode.bf16_near_ties(x, w, interleaved)
         assert not bool((~same & ~near).any())
         assert float((gs - ws).abs()[same].max()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interleaved", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_semantic_decode_repeats_bitwise(interleaved, dtype):
+    """The flagship's b8 shape; no atomics, a fixed order per pixel."""
+    _need_cuda()
+    x, w = _head_case(16, 8, 240, 320, 40, dtype)
+    first = semantic_decode.semantic_decode(x, w, interleaved)
+    again = semantic_decode.semantic_decode(x, w, interleaved)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda
