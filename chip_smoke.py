@@ -7,8 +7,10 @@ Phases (any failure exits non-zero and prints no result):
   1. build: compile every kernel of `emsanet_tpu_torch/csrc` (one nvcc per
      source, all at once); `ptxas` must give both instantiations (bf16,
      f32) of the head-loss forward and backward kernels, the decoder
-     trunk kernel, the stem kernel and the semantic decode kernel a
-     0-byte stack frame; their registers and shared memory are logged.
+     trunk kernel, the stem kernel, the semantic decode kernel and the
+     instance head kernel, the two (D = 1, 2) of the segment histogram
+     kernel and its reduction kernel a 0-byte stack frame; their
+     registers and shared memory are logged.
      The bf16 stem's SASS (`cuobjdump -sass` of the built library) must
      hold tensor-core instructions (HMMA or HGMMA).
   2. main path, per head mode (`interleave`, `decode`, `decode-both`,
@@ -24,9 +26,9 @@ Phases (any failure exits non-zero and prints no result):
      way.
   3. kernels vs plain: every kernel against its plain PyTorch version on
      the captured inputs of every mode, in bf16 and again in f32 (TF32
-     off), with the tolerances below. The stem and the semantic decode
-     must give the same bits in two calls on each of the decode-planes
-     b8 frame's inputs.
+     off), with the tolerances below. The stem, the semantic decode, the
+     segment histogram and the instance head must give the same bits in
+     two calls on each of the decode-planes b8 frame's inputs.
   4. outputs: finite values of the expected shapes; a small b2 frame
      (96x128, R18, f32; no head defers there), once with 'auto' (the
      card takes the trunk kernel, the CPU the unfused decoders) and once
@@ -100,10 +102,11 @@ Tolerances (error relative to the largest magnitude of the plain result
 unless stated): stem bf16 2e-2, f32 1e-4; NBt1D chain bf16 5e-2 (K
 blocks; the plain version rounds every conv output to bf16, the kernel
 only the conv pair's intermediate), f32 1e-4; grouping index and
-distance bit-exact; histogram exact; vector sums 1e-4 (f32 atomics in
-varying order); lookup exact; semantic decode f32 index exact and score
-1e-5 relative, bf16 index different on at most 1e-4 of the pixels and
-only where the plain version's top two values are within one bf16 ulp,
+distance bit-exact; histogram exact; vector sums 1e-4 (the kernel's
+fixed order of sums is not the plain scatter_add's); lookup exact;
+semantic decode f32 index exact and score 1e-5 relative, bf16 index
+different on at most 1e-4 of the pixels and only where the plain
+version's top two values are within one bf16 ulp,
 score 1e-2 absolute where the index agrees; instance head f32 1e-5, bf16
 2e-2; plane interleave bit-exact; decoder trunk bf16 5e-2 (42 convs
 in 3 modules at the flagship; kernel and plain version round at the
@@ -238,19 +241,24 @@ TRUNK_DEVICE_KERNEL = "decoder_trunk_kernel<__nv_bfloat16>"
 # frame or step whose trace lacks a kernel it must run is profiled again,
 # and fails when none of this many traces shows it
 PROFILE_ATTEMPTS = 3
-# (source, kernel) whose instantiations ptxas must give no stack frame
-STACK_FREE = (("semantic_train_head", "head_loss_fwd_kernel"),
-              ("semantic_train_head", "head_loss_bwd_kernel"),
-              ("decoder_trunk", "decoder_trunk_kernel"),
-              ("stem", "stem_kernel"),
-              ("semantic_decode", "semantic_decode_kernel"))
+# (source, kernel, instantiations): ptxas must give each instantiation
+# (bf16 and f32; the histogram's D = 1 and 2) no stack frame
+STACK_FREE = (("semantic_train_head", "head_loss_fwd_kernel", 2),
+              ("semantic_train_head", "head_loss_bwd_kernel", 2),
+              ("decoder_trunk", "decoder_trunk_kernel", 2),
+              ("stem", "stem_kernel", 2),
+              ("semantic_decode", "semantic_decode_kernel", 2),
+              ("segment", "hist_kernel", 2),
+              ("segment", "hist_reduce_kernel", 1),
+              ("instance_head", "instance_head_kernel", 2))
 # the bf16 stem must run on the tensor cores: its SASS (cuobjdump of the
 # built library) must hold mma instructions
 TENSOR_CORE_SASS = (("stem", "stem_kernel", "__nv_bfloat16"),)
 TENSOR_CORE_OPS = ("HMMA", "HGMMA")
 # kernels whose two calls on the flagship b8 frame's inputs must give the
-# same bits (no atomics; a fixed order of every sum)
-REPEAT_KERNELS = ("fused_stems", "semantic_decode")
+# same bits (a fixed order of every float sum)
+REPEAT_KERNELS = ("fused_stems", "semantic_decode", "segment_hist_and_sums",
+                  "instance_head")
 
 
 LOG_FILE = os.path.join(OUT_DIR, "chip_smoke.log")  # the whole log
@@ -625,7 +633,7 @@ def run() -> int:
             f.write(f"== {src}\n{text}\n")
     log(f"[build] {len(_native.SOURCES)} kernel sources in "
         f"{time.time() - t0:.1f} s")
-    for src, kernel in STACK_FREE:
+    for src, kernel, n_inst in STACK_FREE:
         if not logs[src]:  # empty: built by an earlier run
             continue
         props = ptxas_props(logs[src], kernel)
@@ -633,10 +641,11 @@ def run() -> int:
             + "; ".join(f"{p['name']}: {p['stack']} bytes stack, "
                         f"{p['registers']} registers, {p['smem']} bytes "
                         "static smem" for p in props))
-        if len(props) != 2 or any(p["stack"] for p in props):
+        if len(props) != n_inst or any(p["stack"] for p in props):
             raise AssertionError(f"{kernel}: stack frames "
                                  f"{[p['stack'] for p in props]}, expected "
-                                 "0 bytes for both instantiations")
+                                 f"0 bytes for each of {n_inst} "
+                                 "instantiations")
     for src, kernel, inst in TENSOR_CORE_SASS:
         n_mma = sass_mma_count(_native._target(src), kernel, inst)
         log(f"[build] SASS of {kernel}<{inst}>: {n_mma} tensor-core "
@@ -706,7 +715,7 @@ def run() -> int:
     for name in REPEAT_KERNELS:
         for args, kwargs in captured[TIMING_MODE, name, 8]:
             kfn = kernel_spec(name, args, kwargs, ops_mod)[0]
-            first, again = kfn(), kfn()
+            first, again = _outputs(kfn()), _outputs(kfn())
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(first, again)):
                 raise AssertionError(f"{name}: two calls on the {TIMING_MODE}"
@@ -918,6 +927,11 @@ def run() -> int:
 
 def _ms(v):
     return "-" if v is None else f"{v:.4f}"
+
+
+def _outputs(result):
+    """A wrapper's result as a tuple of tensors."""
+    return tuple(result) if isinstance(result, (tuple, list)) else (result,)
 
 
 def _timed_key(per_b, b):
@@ -1208,17 +1222,22 @@ def trunk_phases(torch, trunk, args, tag, runs=5):
 
 def ptxas_props(build_log, kernel):
     """`ptxas -v`'s stack frame, registers and static shared memory of
-    each instantiation of kernel (the f32 and the bf16 one)."""
+    each instantiation of kernel (mangled names: the f32 and the bf16 one,
+    or one per integer template argument)."""
     import re
 
     out, lines = [], build_log.splitlines()
     for i, line in enumerate(lines[:-2]):
-        if "Function properties for" in line and kernel in line:
+        if ("Function properties for" in line
+                and re.search(rf"\d{kernel}[EI]", line)):
             used = lines[i + 2]
             regs = re.search(r"Used (\d+) registers", used)
             smem = re.search(r"(\d+) bytes smem", used)
+            arg = re.search(rf"{kernel}ILi(\d+)E", line)
             out.append({
-                "name": "bf16" if "bfloat16" in line else "f32",
+                "name": ("bf16" if "bfloat16" in line
+                         else f"<{arg.group(1)}>" if arg
+                         else "f32" if f"{kernel}IfE" in line else "-"),
                 "stack": int(lines[i + 1].split("bytes stack frame")[0]),
                 "registers": int(regs.group(1)) if regs else None,
                 "smem": int(smem.group(1)) if smem else 0})

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -101,17 +101,24 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+_bound: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+
+
 def bind(name: str, fn: str, n_args: int, int_args: List[int],
          float_args: Sequence[int] = ()):
     """`lib.fn` with argtypes: void* everywhere except the int and float
-    positions."""
-    f = getattr(load(name), fn)
-    f.argtypes = [
-        ctypes.c_int if i in int_args
-        else ctypes.c_float if i in float_args else ctypes.c_void_p
-        for i in range(n_args)
-    ]
-    f.restype = ctypes.c_int
+    positions. Bound once per function: the wrappers call this on every
+    launch."""
+    f = _bound.get((name, fn))
+    if f is None:
+        f = getattr(load(name), fn)
+        f.argtypes = [
+            ctypes.c_int if i in int_args
+            else ctypes.c_float if i in float_args else ctypes.c_void_p
+            for i in range(n_args)
+        ]
+        f.restype = ctypes.c_int
+        _bound[(name, fn)] = f
     return f
 
 

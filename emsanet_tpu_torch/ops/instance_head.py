@@ -25,7 +25,7 @@ import torch
 from emsanet_tpu_torch.ops import _native
 from emsanet_tpu_torch.ops.plane_interleave import interleave_plane
 from emsanet_tpu_torch.ops.polyphase_upsample import (
-    parity_taps,
+    cached_parity_taps,
     upsample2x_depthwise_polyphase_deferred,
 )
 
@@ -96,7 +96,7 @@ def instance_head(
         if code not in (ENC_IDENTITY, ENC_SIGMOID, ENC_TANH):
             raise ValueError(f"unknown encoding code {code}")
         enc |= code << (4 * ch)
-    taps = parity_taps(weight.detach().to(x.device), x.dtype)
+    taps = cached_parity_taps(weight, x.dtype, x.device)
     shape = (n, c, 2 * h2, 2 * w2) if interleaved else (n, c, 4, h2, w2)
     out = torch.empty(shape, device=x.device, dtype=torch.float32)
     fn = _native.bind("instance_head", "instance_head_launch", 11,

@@ -1,6 +1,7 @@
 """Per-version cache of the values derived from parameters: a chain's or
 a trunk's stacked parameters, a stem's packed weights and folded
-BatchNorm, the semantic decode's polyphase taps.
+BatchNorm, the polyphase taps of the semantic decode and the instance
+head.
 
 Deriving them on every call costs tens of small device launches and some
 host time per frame. `cached(owner, tag, tensors, build)` returns

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from emsanet_tpu_torch.ops import param_cache
+
 # _PARITY_MAP[p, di, a] = 1 iff upsampled tap a of output parity p reads
 # input offset di-1.
 _PARITY_MAP = np.zeros((2, 3, 3), dtype=np.float32)
@@ -74,6 +76,16 @@ def parity_taps(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     kp = polyphase_kernels(weight).reshape(c, 36).to(dtype).float()
     taps = kp[:, _constants(weight.device)[1]]  # (C, 16)
     return taps.t().contiguous().reshape(4, 4, c)
+
+
+def cached_parity_taps(weight: torch.Tensor, dtype: torch.dtype,
+                       device: torch.device) -> torch.Tensor:
+    """`parity_taps` of the weight on `device`, built once per weight
+    version (`param_cache`): the semantic decode's and the instance
+    head's kernels take them on every frame."""
+    return param_cache.cached(
+        weight.untyped_storage(), ("parity_taps", dtype, device), [weight],
+        lambda: parity_taps(weight.detach().to(device), dtype))
 
 
 def upsample2x_depthwise_polyphase_deferred(

@@ -6,15 +6,65 @@ kernels of `csrc/segment.cu`; on CPU tensors they run their plain
 versions (scatter_add / gather with the one-hot semantics of
 `emsanet_tpu/ops/segment_ops.py`: keys outside [0, S) contribute
 nothing and look up 0).
+
+The histogram kernel cuts each image into spans of whole tiles of
+pixels, one block each, and writes one partial table per block to a
+workspace that a second launch adds up in a fixed order. `hist_plan`
+sizes the spans from the card's SM count and the kernel's blocks per SM;
+the tile and the workspace's size come from `csrc/segment.cu`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from emsanet_tpu_torch.ops import _native
+
+
+def hist_plan(n: int, p: int, tile: int, sms: int,
+              per_sm: int) -> Tuple[int, int]:
+    """(blocks per image, tiles per block) of the histogram kernel for
+    images of `p` pixels cut into tiles of `tile`: the fewest tiles per
+    block that let every block of the N images be resident at once
+    (`sms` x `per_sm` blocks; with more images than that, one block per
+    image), and then as few blocks as cover each image's tiles. At least
+    one of each."""
+    tiles = max(1, -(-p // tile))
+    room = max(1, sms * per_sm)
+    per_block = min(tiles, -(-n * tiles // room))
+    while per_block < tiles and n * -(-tiles // per_block) > room:
+        per_block += 1
+    return -(-tiles // per_block), per_block
+
+
+_HIST_SHAPE: Dict[Tuple[int, int, int, int], Tuple[int, int, int, int]] = {}
+
+
+def _hist_shape(device: torch.device, s: int, c: int,
+                d: int) -> Tuple[int, int, int, int]:
+    """(pixels per tile, SMs, blocks of the histogram kernel per SM,
+    workspace floats per block) on `device`, asked once per device and
+    table shape."""
+    key = (device.index or 0, s, c, d)
+    if key not in _HIST_SHAPE:
+        tile = _native.bind("segment", "segment_hist_tile", 0, [])()
+        block_floats = _native.bind("segment", "segment_hist_block_floats",
+                                    3, int_args=[0, 1, 2])(s, c, d)
+        fn = _native.bind("segment", "segment_hist_blocks_per_sm", 3,
+                          int_args=[0, 1, 2])
+        with torch.cuda.device(device):
+            per_sm = fn(s, c, d)
+        if per_sm < 0:
+            _native.check(-per_sm, "segment_hist_and_sums (occupancy)")
+        if per_sm == 0:
+            raise ValueError(f"segment_hist_and_sums: a table of {s} segments"
+                             f" x ({c} classes + {d}) does not fit in shared "
+                             "memory")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _HIST_SHAPE[key] = (tile, sms, per_sm, block_floats)
+    return _HIST_SHAPE[key]
 
 
 def _in_range(keys: torch.Tensor, size: int) -> torch.Tensor:
@@ -49,6 +99,9 @@ def segment_hist_and_sums(
     """(hist (N, S, C), vec_sums (N, S, D)) over pixels.
 
     inst/sem: (N, P) int32; weights: (N, P) f32; vectors: (N, P, D) f32.
+    The kernel takes D = 1 or 2 (the merge's); larger D is cut into
+    calls of two components, each writing the histogram again (the same
+    bits).
     """
     if not inst.is_cuda:
         return segment_hist_and_sums_plain(inst, sem, weights, vectors,
@@ -63,17 +116,37 @@ def segment_hist_and_sums(
         vectors.shape[:2]
     ) != (n, p):
         raise ValueError("segment_hist_and_sums: inputs must share (N, P)")
+    if d < 1 or num_segments < 1 or num_classes < 1:
+        raise ValueError(f"segment_hist_and_sums: D, S and C must be >= 1, "
+                         f"got D = {d}, S = {num_segments}, "
+                         f"C = {num_classes}")
     hist = torch.empty((n, num_segments, num_classes), dtype=torch.float32,
                        device=inst.device)
     sums = torch.empty((n, num_segments, d), dtype=torch.float32,
                        device=inst.device)
-    fn = _native.bind("segment", "segment_hist_and_sums_launch", 12,
-                      int_args=[0, 1, 2, 3, 4])
-    err = fn(n, p, num_segments, num_classes, d, inst.data_ptr(),
-             sem.data_ptr(), weights.data_ptr(), vectors.data_ptr(),
-             hist.data_ptr(), sums.data_ptr(), _native.stream_ptr(inst))
+    if n == 0:
+        return hist, sums
+    tile, sms, per_sm, block_floats = _hist_shape(
+        inst.device, num_segments, num_classes, min(d, 2))
+    blocks, tiles = hist_plan(n, p, tile, sms, per_sm)
+    part = torch.empty((n, blocks, block_floats), dtype=torch.float32,
+                       device=inst.device)
+    fn = _native.bind("segment", "segment_hist_and_sums_launch", 15,
+                      int_args=[0, 1, 2, 3, 4, 5, 6])
+    for off in range(0, d, 2):
+        vec, out = vectors, sums
+        if d > 2:
+            vec = vectors[..., off:off + 2].contiguous()
+            out = torch.empty((n, num_segments, vec.shape[-1]),
+                              dtype=torch.float32, device=inst.device)
+        err = fn(n, p, num_segments, num_classes, vec.shape[-1], blocks,
+                 tiles, inst.data_ptr(), sem.data_ptr(), weights.data_ptr(),
+                 vec.data_ptr(), hist.data_ptr(), out.data_ptr(),
+                 part.data_ptr(), _native.stream_ptr(inst))
+        _native.check(err, "segment_hist_and_sums")
+        if out is not sums:
+            sums[..., off:off + 2] = out
     _SEGMENT_HIST_AND_SUMS.launches += 1
-    _native.check(err, "segment_hist_and_sums")
     return hist, sums
 
 

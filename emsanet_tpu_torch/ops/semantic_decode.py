@@ -22,10 +22,10 @@ from typing import Tuple
 
 import torch
 
-from emsanet_tpu_torch.ops import _native, param_cache
+from emsanet_tpu_torch.ops import _native
 from emsanet_tpu_torch.ops.plane_interleave import interleave_plane
 from emsanet_tpu_torch.ops.polyphase_upsample import (
-    parity_taps,
+    cached_parity_taps,
     upsample2x_depthwise_polyphase_deferred,
 )
 
@@ -69,15 +69,6 @@ def bf16_near_ties(x: torch.Tensor, weight: torch.Tensor,
     ulp = torch.ldexp(torch.ones_like(top2[:, 0]), exponent - 8)
     near = (top2[:, 0] - top2[:, 1]) <= ulp
     return interleave_plane(near) if interleaved else near
-
-
-def cached_parity_taps(weight: torch.Tensor, dtype: torch.dtype,
-                       device: torch.device) -> torch.Tensor:
-    """`parity_taps` of the weight on `device`, built once per weight
-    version (`param_cache`)."""
-    return param_cache.cached(
-        weight.untyped_storage(), ("parity_taps", dtype, device), [weight],
-        lambda: parity_taps(weight.detach().to(device), dtype))
 
 
 def semantic_decode(

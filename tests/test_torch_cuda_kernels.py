@@ -10,7 +10,8 @@ Tolerances (error relative to the largest magnitude): f32 with TF32 off
 1e-4 (summation order), bf16 2e-2 (stem) / 3e-2 (a 2-block chain; the
 plain version rounds every conv output to bf16, the kernel only the
 pair's intermediate); grouping bit-exact; histogram exact; vector sums
-1e-4 (f32 atomics in varying order); lookup exact. Semantic decode: f32
+1e-4 of their largest magnitude (the kernel's fixed order of sums is not
+the plain scatter_add's); lookup exact. Semantic decode: f32
 index exact and score 1e-5 relative; bf16 index different on at most
 1e-4 of the pixels and only where the plain version's top two values are
 within one bf16 ulp, score 1e-2 absolute where the index agrees (inputs
@@ -32,15 +33,16 @@ that reaches 1.2e-4 of the sums; on the flagship's 153600 it stays under
 Semantic head loss: loss
 bf16 1e-2 / f32 1e-5 (the kernel rounds the summed polyphase taps to
 bf16, the plain conv each 3x3 tap); dx 5e-2 / 1e-4, dweight 5e-2 / 1e-3.
-The bf16 chain, the bf16 decoder trunk (split K) and the head-loss
-forward and backward add their partial sums in a fixed order, and the
-stem and the semantic decode sum each output in a fixed order: two
-calls give the same bits.
+The bf16 chain, the bf16 decoder trunk (split K), the segment
+histogram and the head-loss forward and backward add their partial sums
+in a fixed order, and the stem, the semantic decode and the instance
+head sum each output in a fixed order: two calls give the same bits.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch_segment_maps
 
 from emsanet_tpu_torch.ops import (
     decoder_trunk,
@@ -291,6 +293,80 @@ def test_cuda_grouping_and_segments_match_plain():
                        segment_kernels.segment_lookup_plain(args[0], tables))
 
 
+def _hist_case(case, n, p, d):
+    if case == "frame":
+        return torch_segment_maps.frame_like(17, n, 480, p // 480, d=d)
+    if case == "frame-planes":
+        return torch_segment_maps.frame_like(18, n, 480, p // 480, d=d,
+                                             order="parity")
+    if case == "one-key":
+        return torch_segment_maps.one_key(19, n, p, d)
+    return torch_segment_maps.uniform(20, n, p, d=d)
+
+
+def _hist_check(case, n, p, d):
+    """Kernel against plain: histogram equal, sums within 1e-4 of their
+    largest magnitude, two calls bit-identical, one launch each."""
+    args = [_t(a).cuda() for a in _hist_case(case, n, p, d)]
+    before = segment_kernels.segment_hist_and_sums.launches
+    gh, gs = segment_kernels.segment_hist_and_sums(*args, 65, 41)
+    again = segment_kernels.segment_hist_and_sums(*args, 65, 41)
+    assert segment_kernels.segment_hist_and_sums.launches == before + 2
+    wh, ws = segment_kernels.segment_hist_and_sums_plain(*args, 65, 41)
+    torch.cuda.synchronize()
+    assert torch.equal(gh, wh)
+    assert float((gs - ws).abs().max() / ws.abs().max()) <= 1e-4
+    assert torch.equal(gh, again[0]) and torch.equal(gs, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["frame", "frame-planes", "one-key",
+                                  "uniform"])
+@pytest.mark.parametrize("n", [1, 8])
+def test_cuda_segment_hist_flagship_matches_plain(case, n):
+    """The merge's call at 480x640: a frame-like map (row-major and
+    parity-major), one key on every pixel, uniformly random keys; at b1
+    and b8 each image spans many blocks."""
+    _need_cuda()
+    _hist_check(case, n, 480 * 640, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["frame", "uniform"])
+@pytest.mark.parametrize("n", [1, 8])
+def test_cuda_segment_hist_fractional_weights(case, n):
+    """Weights that are not whole votes (uniform in [0, 2), a few exact
+    integers among them) take the kernel's float path: histogram and
+    sums within 1e-5 and 1e-4 of their largest magnitudes, two calls
+    bit-identical."""
+    _need_cuda()
+    inst, sem, _, vec = _hist_case(case, n, 480 * 640, 2)
+    rng = np.random.RandomState(22)
+    w = (rng.rand(*inst.shape) * 2).astype(np.float32)
+    w[:, ::7] = np.round(w[:, ::7])
+    args = [_t(a).cuda() for a in (inst, sem, w, vec)]
+    gh, gs = segment_kernels.segment_hist_and_sums(*args, 65, 41)
+    again = segment_kernels.segment_hist_and_sums(*args, 65, 41)
+    wh, ws = segment_kernels.segment_hist_and_sums_plain(*args, 65, 41)
+    torch.cuda.synchronize()
+    assert float((gh - wh).abs().max() / wh.abs().max()) <= 1e-5
+    assert float((gs - ws).abs().max() / ws.abs().max()) <= 1e-4
+    assert torch.equal(gh, again[0]) and torch.equal(gs, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["frame", "one-key", "uniform"])
+@pytest.mark.parametrize("p,d", [(480 * 643, 2),   # P % 4 == 0, ragged tile
+                                 (480 * 641, 2),   # P odd: scalar loads
+                                 (480 * 67, 1), (480 * 65, 1),
+                                 # a pass per two components
+                                 (480 * 643, 3), (480 * 641, 4)])
+def test_cuda_segment_hist_ragged_matches_plain(case, p, d):
+    """P not a multiple of the kernel's 1024-pixel tile, D = 1 to 4."""
+    _need_cuda()
+    _hist_check(case, 3, p, d)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 60, 80, 40), (1, 33, 70, 37),
                                    (1, 8, 12, 5), (1, 17, 31, 19),
@@ -349,6 +425,33 @@ def test_cuda_instance_head_matches_plain(c, interleaved, dtype, tol):
     want = plain(x, w, enc)
     err = (got - want).abs().max() / want.abs().max()
     assert got.shape == want.shape and float(err) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 240, 320, 5), (1, 240, 320, 3),
+                                   (1, 17, 31, 5), (2, 9, 66, 5)])
+@pytest.mark.parametrize("interleaved", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_instance_head_frame_matches_plain(shape, interleaved, dtype,
+                                                tol):
+    """The frame's b8 and b1 (no orientation) shapes, and ragged ones
+    (odd width: element stores; a width of 66 leaves a block's last
+    threads partly outside). Two calls give the same bits."""
+    _need_cuda()
+    x, w = _head_case(21, *shape, dtype)
+    enc = instance_head.encodings_for(shape[-1], True, True)
+    before = instance_head.instance_head.launches
+    got = instance_head.instance_head(x, w, enc, interleaved)
+    again = instance_head.instance_head(x, w, enc, interleaved)
+    assert instance_head.instance_head.launches == before + 2
+    plain = (instance_head.instance_head_upsample_interleaved_plain
+             if interleaved else instance_head.instance_head_upsample_plain)
+    want = plain(x, w, enc)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max() / want.abs().max()
+    assert got.shape == want.shape and float(err) <= tol
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

@@ -30,8 +30,11 @@ from emsanet_tpu_torch.models.layers import (
     _cached_chain_params,
     stack_chain_params,
 )
-from emsanet_tpu_torch.ops import param_cache, semantic_decode, stem
-from emsanet_tpu_torch.ops.polyphase_upsample import parity_taps
+from emsanet_tpu_torch.ops import param_cache, stem
+from emsanet_tpu_torch.ops.polyphase_upsample import (
+    cached_parity_taps,
+    parity_taps,
+)
 
 
 def _case(seed, n, h, w, c):
@@ -136,11 +139,11 @@ def test_decode_taps_built_once_per_version(dtype):
     w = torch.from_numpy(np.random.RandomState(5).randn(40, 1, 3, 3)
                          .astype(np.float32))
     cpu = torch.device("cpu")
-    first = semantic_decode.cached_parity_taps(w, dtype, cpu)
+    first = cached_parity_taps(w, dtype, cpu)
     # a new view of the same storage and version: no rebuild
-    assert semantic_decode.cached_parity_taps(w.detach(), dtype, cpu) is first
+    assert cached_parity_taps(w.detach(), dtype, cpu) is first
     w.add_(1.0)
-    second = semantic_decode.cached_parity_taps(w, dtype, cpu)
+    second = cached_parity_taps(w, dtype, cpu)
     assert second is not first
     assert torch.equal(second, parity_taps(w, dtype))
 
