@@ -9,8 +9,9 @@ Phases (any failure exits non-zero and prints no result):
      f32) of the head-loss forward and backward kernels, the decoder
      trunk kernel, the stem kernel, the semantic decode kernel and the
      instance head kernel, the two (D = 1, 2) of the segment histogram
-     kernel and its reduction kernel a 0-byte stack frame; their
-     registers and shared memory are logged.
+     kernel and its reduction kernel, the two (4 and 8 pixels a thread)
+     of the grouping kernel and the plane interleave kernel a 0-byte
+     stack frame; their registers and shared memory are logged.
      The bf16 stem's SASS (`cuobjdump -sass` of the built library) must
      hold tensor-core instructions (HMMA or HGMMA).
   2. main path, per head mode (`interleave`, `decode`, `decode-both`,
@@ -27,8 +28,9 @@ Phases (any failure exits non-zero and prints no result):
   3. kernels vs plain: every kernel against its plain PyTorch version on
      the captured inputs of every mode, in bf16 and again in f32 (TF32
      off), with the tolerances below. The stem, the semantic decode, the
-     segment histogram and the instance head must give the same bits in
-     two calls on each of the decode-planes b8 frame's inputs.
+     segment histogram, the instance head, the grouping and the plane
+     interleave must give the same bits in two calls on each of the
+     decode-planes b8 frame's inputs.
   4. outputs: finite values of the expected shapes; a small b2 frame
      (96x128, R18, f32; no head defers there), once with 'auto' (the
      card takes the trunk kernel, the CPU the unfused decoders) and once
@@ -76,6 +78,10 @@ Phases (any failure exits non-zero and prints no result):
      device ms, bound, TFLOP/s, and cuDNN's convs alone (F.conv2d 3x1
      then 1x3, channels_last bf16, no epilogue; a yardstick the port
      never calls). Gated: each b1 call repeats bit for bit.
+ 6c. grouping center sets: the grouping kernel against its plain version,
+     bit for bit, on the decode-planes b8 frame's votes with three center
+     sets: the frame's own, all 64 valid and 8 of 64 valid; its device ms
+     with each is logged.
   7. train: the flagship training step (R34-NBt1D, semantic + instance +
      orientation + scene, NYUv2 labels; 640x480, b8, bf16 compute with f32
      parameters, fused_training, multiscale supervision, median-frequency
@@ -250,7 +256,9 @@ STACK_FREE = (("semantic_train_head", "head_loss_fwd_kernel", 2),
               ("semantic_decode", "semantic_decode_kernel", 2),
               ("segment", "hist_kernel", 2),
               ("segment", "hist_reduce_kernel", 1),
-              ("instance_head", "instance_head_kernel", 2))
+              ("instance_head", "instance_head_kernel", 2),
+              ("grouping", "grouping_kernel", 1),
+              ("plane_interleave", "plane_interleave_kernel", 1))
 # the bf16 stem must run on the tensor cores: its SASS (cuobjdump of the
 # built library) must hold mma instructions
 TENSOR_CORE_SASS = (("stem", "stem_kernel", "__nv_bfloat16"),)
@@ -258,7 +266,10 @@ TENSOR_CORE_OPS = ("HMMA", "HGMMA")
 # kernels whose two calls on the flagship b8 frame's inputs must give the
 # same bits (a fixed order of every float sum)
 REPEAT_KERNELS = ("fused_stems", "semantic_decode", "segment_hist_and_sums",
-                  "instance_head")
+                  "instance_head", "group_pixels_argmin", "interleave_planes")
+# the grouping kernel's center sets on the b8 frame's votes: (name, number
+# of valid centers; None: the frame's own)
+GROUPING_CENTER_SETS = (("frame", None), ("64 valid", 64), ("8 valid", 8))
 
 
 LOG_FILE = os.path.join(OUT_DIR, "chip_smoke.log")  # the whole log
@@ -328,12 +339,11 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _words(named):
-    """The maps that `interleave_planes` sends through its kernel."""
-    import torch
-
+def _kernel_maps(named, pint):
+    """The maps that `interleave_planes` sends through its kernel: 4-byte
+    and 1-byte maps of width >= 2."""
     return [x for x in named.values()
-            if x.dtype in (torch.float32, torch.int32) and x.shape[-1] >= 2]
+            if x.dtype in pint.KERNEL_DTYPES and x.shape[-1] >= 2]
 
 
 def kernel_spec(name, args, kwargs, ops_mod):
@@ -368,12 +378,14 @@ def kernel_spec(name, args, kwargs, ops_mod):
     if name == "group_pixels_argmin":
         voted, centers, valid = args
         n, p, _ = voted.shape
-        kk = centers.shape[1]
         byts = _nbytes(voted, centers, valid) + n * p * 8
+        # 6 operations per pixel and valid center of its image: the
+        # kernel walks those alone, so this run's centers set the work
+        ops = 6 * p * int(valid.sum())
         return (lambda: grouping.group_pixels_argmin(voted, centers, valid),
                 lambda: grouping.group_pixels_argmin_plain(voted, centers,
                                                            valid),
-                None, byts, n * p * kk * 6, "float32")
+                None, byts, ops, "float32")
     if name == "segment_hist_and_sums":
         inst, sem, w, vec = args[:4]
         s = kwargs["num_segments"]
@@ -447,11 +459,15 @@ def kernel_spec(name, args, kwargs, ops_mod):
                 None, byts, ops, str(con_out.dtype).split(".")[1])
     if name == "interleave_planes":
         (named,) = args
-        words = _words(named)
+        maps = _kernel_maps(named, pint)
+        # yardstick: one pixel_shuffle per map the kernel weaves (bool maps
+        # as their bytes)
+        shuffled = [x.view(torch.uint8) if x.dtype == torch.bool else x
+                    for x in maps]
         return (lambda: pint.interleave_planes(named),
                 lambda: pint.interleave_planes_plain(named),
-                lambda: [F.pixel_shuffle(x, 2) for x in words],
-                2 * _nbytes(*words), 0, "float32")
+                lambda: [F.pixel_shuffle(x, 2) for x in shuffled],
+                2 * _nbytes(*maps), 0, "float32")
     raise KeyError(name)
 
 
@@ -902,6 +918,10 @@ def run() -> int:
             f"b{b} ms {_ms(e[f'ms_b{b}'])} device {_ms(e[f'device_ms_b{b}'])}"
             for b in BATCHES))
     chain_report = chain_sites(torch, captured, ops_mod, card)
+    # after the profiles: device_ms runs torch.profiler
+    grouping_sets = grouping_center_sets(
+        torch, captured[TIMING_MODE, "group_pixels_argmin", 8][0][0],
+        ops_mod)
     # -- 7. train -------------------------------------------------------------
     del frames, captured, results
     torch.cuda.empty_cache()
@@ -915,6 +935,7 @@ def run() -> int:
                    "trunk_on_off": trunk_report,
                    "library_device": library_device,
                    "chain_sites": chain_report,
+                   "grouping_center_sets": grouping_sets,
                    "train": train_report}, f, indent=1)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(card)
@@ -931,7 +952,45 @@ def _ms(v):
 
 def _outputs(result):
     """A wrapper's result as a tuple of tensors."""
+    if isinstance(result, dict):
+        return tuple(result.values())
     return tuple(result) if isinstance(result, (tuple, list)) else (result,)
+
+
+def grouping_center_sets(torch, args, ops_mod):
+    """The grouping kernel against its plain version (bit for bit, via
+    `compare`) on one call's votes of the b8 frame with each center set of
+    GROUPING_CENTER_SETS, and its device ms with each. The other sets keep
+    the frame's valid centers where they are and put the rest at random
+    places in the frame (seed 0); '8 valid' keeps 8 slots spread over K."""
+    voted, centers, valid = args
+    n, k, _ = centers.shape
+    gen = torch.Generator(device=centers.device).manual_seed(0)
+    spots = torch.stack(
+        [torch.randint(0, 480, (n, k), generator=gen, device=centers.device),
+         torch.randint(0, 640, (n, k), generator=gen, device=centers.device)],
+        -1).float()
+    placed = torch.where(valid[..., None], centers, spots).contiguous()
+    report = {}
+    for name, n_valid in GROUPING_CENTER_SETS:
+        if n_valid is None:
+            set_args = (voted, centers, valid)
+        else:
+            keep = torch.zeros_like(valid)
+            keep[:, torch.arange(n_valid) * (k // n_valid)] = True
+            set_args = (voted, placed, keep)
+        compare("group_pixels_argmin", set_args, {}, ops_mod, "f32")
+        kfn, _, _, byts, ops, odt = kernel_spec("group_pixels_argmin",
+                                                set_args, {}, ops_mod)
+        report[name] = {
+            "valid_per_image": set_args[2].sum(1).tolist(),
+            "device_ms": device_ms(kfn),
+            "bound_ms": max(byts / PEAK_BYTES, ops / PEAK_OPS[odt]) * 1e3}
+        log(f"[grouping centers] {name}: valid per image "
+            f"{report[name]['valid_per_image']}, equal to plain, device ms "
+            f"{report[name]['device_ms']:.4f}, bound "
+            f"{report[name]['bound_ms']:.4f}")
+    return report
 
 
 def _timed_key(per_b, b):

@@ -122,8 +122,18 @@ def bind(name: str, fn: str, n_args: int, int_args: List[int],
     return f
 
 
+# torch's private raw-stream accessor (CUDA builds only); None where a
+# release lacks it, and then `stream_ptr` takes the public path
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw pointer of the current stream on t's card. The private
+    accessor skips the `torch.cuda.Stream` object that
+    `torch.cuda.current_stream(dev).cuda_stream` builds on every call."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(t.device).cuda_stream
+    return _RAW_STREAM(t.get_device())
 
 
 def check(err: int, what: str) -> None:

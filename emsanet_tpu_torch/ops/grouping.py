@@ -2,10 +2,11 @@
 
 Counterpart of `emsanet_tpu/ops/grouping.py::group_pixels_argmin`. On
 CUDA tensors `group_pixels_argmin` launches the hand-written kernel
-`csrc/grouping.cu`; on CPU tensors it runs
+`csrc/grouping.cu` (the valid centers staged once per block, 4 pixels
+a thread); on CPU tensors it runs
 `group_pixels_argmin_plain`, the JAX package's reference formula
-(`group_pixels_argmin_reference`). The index is bit-exact between the
-two.
+(`group_pixels_argmin_reference`). Index and distance are bit-exact
+between the two.
 """
 
 from __future__ import annotations

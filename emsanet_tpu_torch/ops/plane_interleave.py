@@ -7,11 +7,15 @@ package's `postprocessing.interleave_plane` / `deinterleave_plane`
 full-res form is (N, H, W) with pixel (2y+p, 2x+q) = plane p*2+q at
 (y, x).
 
-On CUDA tensors `interleave_planes` sends every f32 / int32 map with
-width >= 2 through ONE launch of the hand-written kernel
-`csrc/plane_interleave.cu` (a bitwise copy: f32 is exact); bool and other
-dtypes take the plain `interleave_plane`, as on the TPU. On CPU tensors
-every map takes `interleave_plane`.
+On CUDA tensors `interleave_planes` sends every f32 / int32 map and
+every 1-byte map (bool, uint8, int8) with width >= 2 through ONE launch
+of the hand-written kernel `csrc/plane_interleave.cu` (a bitwise copy:
+f32 is exact); other dtypes take the plain `interleave_plane`, as on the
+TPU. On CPU tensors every map takes `interleave_plane`. The kernel's
+outputs of one call are views of one allocation: a caller that keeps one
+of them keeps the memory of all of them (about 61 MB for the
+decode-planes frame's maps at b8), and `torch.save` of one writes the
+whole buffer; `.clone()` a map to keep it alone.
 """
 
 from __future__ import annotations
@@ -24,6 +28,11 @@ import torch
 from emsanet_tpu_torch.ops import _native
 
 MAX_MAPS_PER_LAUNCH = 16  # csrc/plane_interleave.cu kMaxMaps
+# element size of each dtype the kernel takes
+KERNEL_DTYPES = {torch.float32: 4, torch.int32: 4, torch.bool: 1,
+                 torch.uint8: 1, torch.int8: 1}
+_Pointers = ctypes.c_void_p * MAX_MAPS_PER_LAUNCH
+_Sizes = ctypes.c_int * MAX_MAPS_PER_LAUNCH
 
 
 def interleave_plane(planes: torch.Tensor) -> torch.Tensor:
@@ -47,43 +56,64 @@ def interleave_planes_plain(
     return {name: interleave_plane(x) for name, x in named.items()}
 
 
-def _takes_kernel(x: torch.Tensor) -> bool:
-    return x.dtype in (torch.float32, torch.int32) and x.shape[-1] >= 2
-
-
 def interleave_planes(
     named: Dict[str, torch.Tensor]
 ) -> Dict[str, torch.Tensor]:
     """Interleave every map of `named`; bit-exact with
-    `interleave_planes_plain`. The 4-byte maps of one shape share one
-    launch (one per 16 maps)."""
+    `interleave_planes_plain`. The kernel's maps must share one shape and
+    go through one launch per 16 maps; their outputs share one buffer
+    (see the module's docstring)."""
     if not any(x.is_cuda for x in named.values()):
         return interleave_planes_plain(named)
-    words = [name for name, x in named.items() if _takes_kernel(x)]
-    out = {name: interleave_plane(x) for name, x in named.items()
-           if name not in words}
-    if not words:
+    out, words, octets = {}, [], []
+    shape = None
+    for name, x in named.items():
+        size = KERNEL_DTYPES.get(x.dtype)
+        s = x.shape
+        if size is None or s[-1] < 2:
+            out[name] = interleave_plane(x)
+            continue
+        if shape is None:
+            shape = s
+        if (s != shape or len(s) != 4 or s[1] != 4 or not x.is_cuda
+                or not x.is_contiguous()):
+            raise ValueError("interleave_planes: every map of the kernel "
+                             "must be a contiguous CUDA (N, 4, H/2, W/2) "
+                             f"of one shape, got {name} {tuple(s)} on "
+                             f"{x.device}")
+        (words if size == 4 else octets).append((name, x))
+    if shape is None:
         return out
-    n, four, h2, w2 = named[words[0]].shape
-    for name in words:
-        x = named[name]
-        _native.require_cuda_tensor(x, name, (torch.float32, torch.int32), 4)
-        if tuple(x.shape) != (n, four, h2, w2) or four != 4:
-            raise ValueError("interleave_planes: every 4-byte map must be "
-                             f"(N, 4, H/2, W/2) of one shape, got {name} "
-                             f"{tuple(x.shape)}")
-        out[name] = torch.empty((n, 2 * h2, 2 * w2), dtype=x.dtype,
-                                device=x.device)
-    fn = _native.bind("plane_interleave", "plane_interleave_launch", 7,
+    n, _, h2, w2 = shape
+    plane = n * 4 * h2 * w2  # elements of one output map
+    # one allocation, the 4-byte maps first: every output then starts on a
+    # 16-byte boundary wherever the 1-byte maps' rows allow their 16-byte
+    # path; each output is a view of it in its own dtype
+    kernel = words + octets
+    buf = torch.empty((4 * len(words) + len(octets)) * plane,
+                      dtype=torch.uint8, device=kernel[0][1].device)
+    flat = {}
+    base = buf.data_ptr()
+    ins, outs, sizes = [], [], []
+    offset = 0  # bytes
+    for name, x in kernel:
+        size = KERNEL_DTYPES[x.dtype]
+        view = flat.get(x.dtype)
+        if view is None:
+            view = flat[x.dtype] = buf.view(x.dtype)
+        ins.append(x.data_ptr())
+        outs.append(base + offset)
+        sizes.append(size)
+        out[name] = view.as_strided((n, 2 * h2, 2 * w2),
+                                    (4 * h2 * w2, 2 * w2, 1), offset // size)
+        offset += size * plane
+    fn = _native.bind("plane_interleave", "plane_interleave_launch", 8,
                       int_args=[0, 1, 2, 3])
-    for i in range(0, len(words), MAX_MAPS_PER_LAUNCH):
-        chunk = words[i:i + MAX_MAPS_PER_LAUNCH]
-        ins = (ctypes.c_void_p * len(chunk))(
-            *(named[name].data_ptr() for name in chunk))
-        outs = (ctypes.c_void_p * len(chunk))(
-            *(out[name].data_ptr() for name in chunk))
-        err = fn(len(chunk), n, h2, w2, ins, outs,
-                 _native.stream_ptr(named[chunk[0]]))
+    stream = _native.stream_ptr(buf)
+    for i in range(0, len(kernel), MAX_MAPS_PER_LAUNCH):
+        m = min(MAX_MAPS_PER_LAUNCH, len(kernel) - i)
+        err = fn(m, n, h2, w2, _Pointers(*ins[i:i + m]),
+                 _Pointers(*outs[i:i + m]), _Sizes(*sizes[i:i + m]), stream)
         _INTERLEAVE_PLANES.launches += 1
         _native.check(err, "interleave_planes")
     return {name: out[name] for name in named}

@@ -42,6 +42,7 @@ head sum each output in a fixed order: two calls give the same bits.
 import numpy as np
 import pytest
 import torch
+import torch_kernel_cases
 import torch_segment_maps
 
 from emsanet_tpu_torch.ops import (
@@ -141,6 +142,22 @@ def _need_cuda():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+def test_cuda_raw_stream_accessor_matches_current_stream():
+    """Every wrapper launches on `_native.stream_ptr`: the CUDA build's
+    private raw-stream accessor must exist and name the current stream,
+    on the default stream and on a side stream."""
+    _need_cuda()
+    from emsanet_tpu_torch.ops import _native
+
+    assert _native._RAW_STREAM is not None
+    x = torch.zeros(1, device="cuda")
+    assert _native.stream_ptr(x) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _native.stream_ptr(x) == side.cuda_stream
 
 
 @pytest.mark.cuda
@@ -291,6 +308,39 @@ def test_cuda_grouping_and_segments_match_plain():
     tables = torch.randn((2, 2, 65), device="cuda")
     assert torch.equal(segment_kernels.segment_lookup(args[0], tables),
                        segment_kernels.segment_lookup_plain(args[0], tables))
+
+
+def _grouping_check(voted, centers, valid):
+    """The kernel equals the plain version bit for bit (idx and dist), and
+    a second call gives the same bits; one launch per call."""
+    args = [_t(a).cuda() for a in (voted, centers, valid)]
+    before = grouping.group_pixels_argmin.launches
+    got = grouping.group_pixels_argmin(*args)
+    again = grouping.group_pixels_argmin(*args)
+    assert grouping.group_pixels_argmin.launches == before + 2
+    want = grouping.group_pixels_argmin_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    assert torch.equal(got[0], again[0])
+    assert torch.equal(got[1].view(torch.int32), again[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", torch_kernel_cases.EDGE_CASES)
+def test_cuda_grouping_edge_cases_match_plain(case):
+    _need_cuda()
+    _grouping_check(*torch_kernel_cases.edge_case(case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_valid", [64, 45, 8])
+@pytest.mark.parametrize("n", [1, 8])
+def test_cuda_grouping_frame_matches_plain(n, n_valid):
+    _need_cuda()
+    voted = torch_kernel_cases.frame_votes(20 + n, n)
+    centers, valid = torch_kernel_cases.center_set(30 + n_valid, n, n_valid)
+    _grouping_check(voted, centers, valid)
 
 
 def _hist_case(case, n, p, d):
@@ -476,6 +526,70 @@ def test_cuda_interleave_planes_matches_plain():
         if g.dtype == torch.float32:
             g, w = g.view(torch.int32), w.view(torch.int32)
         assert torch.equal(g, w), key
+
+
+def _frame_maps(seed, shape):
+    return {key: _t(x).cuda() for key, x in
+            torch_kernel_cases.frame_planes(seed, shape).items()}
+
+
+def _interleave_check(named, launches):
+    before = plane_interleave.interleave_planes.launches
+    got = plane_interleave.interleave_planes(named)
+    assert plane_interleave.interleave_planes.launches == before + launches
+    want = plane_interleave.interleave_planes_plain(named)
+    torch.cuda.synchronize()
+    assert list(got) == list(named)
+    for key in named:
+        g, w = got[key], want[key]
+        assert g.dtype == w.dtype and g.shape == w.shape, key
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8])
+def test_cuda_interleave_planes_frame_maps_one_launch(n):
+    """The frame's 7 maps at 640x480, the bool map in the same launch."""
+    _need_cuda()
+    _interleave_check(_frame_maps(n, (n, 4, 240, 320)), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 30, 41), (1, 4, 3, 12),
+                                   (3, 4, 5, 2)])
+def test_cuda_interleave_planes_ragged_widths(shape):
+    """Odd W/2 (the scalar path of every map), a W/2 that keeps the word
+    maps on the 16-byte path but not the bool map, and the least width;
+    plus maps that start off an 8-byte boundary, and a uint8 map."""
+    _need_cuda()
+    named = _frame_maps(7, shape)
+    numel = int(np.prod(shape))
+    named["shifted_f32"] = torch.randn(numel + 1, device="cuda")[1:].view(
+        shape)
+    named["shifted_bool"] = (torch.rand(numel + 3, device="cuda")
+                             > 0.5)[3:].view(shape)
+    named["uint8"] = torch.randint(0, 256, shape, device="cuda",
+                                   dtype=torch.uint8)
+    _interleave_check(named, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_interleave_planes_17_maps_two_launches():
+    _need_cuda()
+    named = {f"m{i}": torch.randn((2, 4, 6, 8), device="cuda")
+             for i in range(16)}
+    named["fg"] = torch.rand((2, 4, 6, 8), device="cuda") > 0.5
+    _interleave_check(named, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_interleave_planes_width_one_takes_the_plain_path():
+    _need_cuda()
+    named = {"a": torch.randn((2, 4, 5, 1), device="cuda"),
+             "fg": torch.rand((2, 4, 5, 1), device="cuda") > 0.5}
+    _interleave_check(named, 0)
 
 
 def _trunk_case(seed, n_dec, n, h0, w0, c0, chans, skip_chans, k, dtype):

@@ -219,6 +219,31 @@ def test_interleave_planes_plain_matches_jax(dtype):
             np.asarray(jax_pp.interleave_plane(jnp.asarray(named[key]))))
 
 
+def test_interleave_planes_plain_matches_jax_mixed_odd_width():
+    """f32, int32 and bool maps in one dict, W/2 odd: the kernel weaves
+    all three kinds in one launch on the card."""
+    rng = np.random.RandomState(3)
+    shape = (2, 4, 6, 7)
+    named = {
+        "score": rng.randn(*shape).astype(np.float32),
+        "idx": rng.randint(-2**31, 2**31 - 1, shape).astype(np.int32),
+        "fg": rng.rand(*shape) > 0.5,
+        "nan": np.full(shape, np.nan, np.float32),
+    }
+    want = interleave_planes_pallas({k: jnp.asarray(v)
+                                     for k, v in named.items()},
+                                    interpret=True)
+    got = plane_interleave.interleave_planes_plain(
+        {k: _t(v) for k, v in named.items()})
+    assert list(got) == list(named)
+    for key in named:
+        g, w = got[key].numpy(), np.asarray(want[key])
+        assert g.dtype == w.dtype and g.shape == (2, 12, 14)
+        if g.dtype == np.float32:
+            g, w = g.view(np.int32), w.view(np.int32)
+        np.testing.assert_array_equal(g, w)
+
+
 def test_deinterleave_plane_matches_jax_and_round_trips():
     full = np.random.RandomState(1).randn(3, 8, 12).astype(np.float32)
     got = pp.deinterleave_plane(_t(full))

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_kernel_cases
 
 from emsanet_tpu.ops import grouping as jax_grouping
 from emsanet_tpu.ops import segment_pallas as jax_segment
@@ -123,6 +124,26 @@ def test_grouping_plain_matches_jax_bit_exact():
     np.testing.assert_array_equal(got_d.numpy(), np.asarray(ref_d))
 
 
+@pytest.mark.parametrize("case", torch_kernel_cases.EDGE_CASES)
+def test_grouping_edge_cases_plain_matches_jax_bit_exact(case):
+    """All centers invalid, one valid at index 0 or K-1, valid centers
+    that are no prefix of K, valid centers at >= 1e12 behind (and ahead
+    of) invalid ones, K = 1 and 65, P not a multiple of 4."""
+    voted, centers, valid = torch_kernel_cases.edge_case(case)
+    args = [jnp.asarray(a) for a in (voted, centers, valid)]
+    want_i, want_d = jax_grouping.group_pixels_argmin(*args, interpret=True)
+    ref_i, ref_d = jax_grouping.group_pixels_argmin_reference(*args)
+    got_i, got_d = grouping.group_pixels_argmin(
+        _t(voted), _t(centers), _t(valid))
+    for want in (want_i, ref_i):
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want))
+    for want in (want_d, ref_d):
+        np.testing.assert_array_equal(got_d.numpy().view(np.int32),
+                                      np.asarray(want).view(np.int32))
+    if case in ("all-invalid", "k1-invalid"):
+        assert not got_i.any() and bool((got_d == 1e12).all())
+
+
 def _segment_case(seed, n=2, p=5000, k=65, c=41, d=2):
     rng = np.random.RandomState(seed)
     inst = rng.randint(0, k, (n, p)).astype(np.int32)
@@ -185,3 +206,33 @@ def test_cpu_tensors_take_the_plain_version():
              segment_kernels.segment_hist_and_sums.launches,
              segment_kernels.segment_lookup.launches)
     assert after == before
+
+
+class _FakeCard:
+    """A tensor stand-in on card 3 for `_native.stream_ptr`."""
+
+    device = "cuda:3"
+
+    def get_device(self):
+        return 3
+
+
+def test_stream_ptr_takes_the_raw_accessor(monkeypatch):
+    from emsanet_tpu_torch.ops import _native
+
+    monkeypatch.setattr(_native, "_RAW_STREAM", lambda dev: 1000 + dev)
+    assert _native.stream_ptr(_FakeCard()) == 1003
+
+
+def test_stream_ptr_falls_back_without_the_raw_accessor(monkeypatch):
+    from emsanet_tpu_torch.ops import _native
+
+    class Stream:
+        cuda_stream = 77
+
+    asked = []
+    monkeypatch.setattr(_native, "_RAW_STREAM", None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: asked.append(dev) or Stream())
+    assert _native.stream_ptr(_FakeCard()) == 77
+    assert asked == ["cuda:3"]
