@@ -9,9 +9,12 @@ Phases (any failure exits non-zero and prints no result):
      f32) of the head-loss forward and backward kernels, the decoder
      trunk kernel, the stem kernel, the semantic decode kernel and the
      instance head kernel, the two (D = 1, 2) of the segment histogram
-     kernel and its reduction kernel, the two (4 and 8 pixels a thread)
-     of the grouping kernel and the plane interleave kernel a 0-byte
-     stack frame; their registers and shared memory are logged.
+     kernel and its reduction kernel, the grouping kernel, the plane
+     interleave kernel and the three (D = 1, 2, any) of the segment
+     lookup kernel a 0-byte stack frame; their registers and shared
+     memory are logged. A source whose library an earlier run built gives
+     no ptxas report: it is compiled again, to a cubin in a temporary
+     directory, so every gated kernel is checked on every run.
      The bf16 stem's SASS (`cuobjdump -sass` of the built library) must
      hold tensor-core instructions (HMMA or HGMMA).
   2. main path, per head mode (`interleave`, `decode`, `decode-both`,
@@ -31,6 +34,10 @@ Phases (any failure exits non-zero and prints no result):
      segment histogram, the instance head, the grouping and the plane
      interleave must give the same bits in two calls on each of the
      decode-planes b8 frame's inputs.
+ 3b. lookup cases: the segment lookup kernel against its plain version,
+     bit for bit, on `tests/torch_kernel_cases.py::LOOKUP_CASES` (keys
+     below 0 and from S up, D = 1, 2, 3, P % 4 != 0, misaligned keys, a
+     60 kB table).
   4. outputs: finite values of the expected shapes; a small b2 frame
      (96x128, R18, f32; no head defers there), once with 'auto' (the
      card takes the trunk kernel, the CPU the unfused decoders) and once
@@ -103,6 +110,19 @@ Phases (any failure exits non-zero and prints no result):
      under torch.profiler (a step whose trace lacks launches of the pair
      kernels is profiled again, as the frames are), each train kernel, its plain version and its
      bound; the loader's host time per batch.
+  8. validation (`python -m emsanet_tpu_torch.train`'s loop): an R18
+     96x128 f32 b2 model after 16 train steps on the card,
+     validated on the card and, with the same weights, on the CPU: every
+     metric within 0.01 (1 degree for the angular errors). The flagship
+     with run 4's flags (results_samples/train_run_r5/run4_bce/argsv.txt:
+     R34-NBt1D, 640x480, b8, 'auto' -> decode-planes) and
+     `--mixed-precision` (bf16) trains 2 epochs and validates each into a
+     temporary run directory (sanity check, checkpoints, metrics.csv); one
+     more validation runs with the launch counters set to 0 just before it and
+     read just after: kernels 1-7 (stem, chain, grouping, histogram,
+     lookup, decode, instance head, interleave) must have launched; its
+     metrics must be finite; its ms per batch is logged; a checkpoint
+     saved and loaded on the card gives equal model and optimizer tensors.
 
 Tolerances (error relative to the largest magnitude of the plain result
 unless stated): stem bf16 2e-2, f32 1e-4; NBt1D chain bf16 5e-2 (K
@@ -153,6 +173,7 @@ comes from the profiled step) and, last, {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -258,7 +279,8 @@ STACK_FREE = (("semantic_train_head", "head_loss_fwd_kernel", 2),
               ("segment", "hist_reduce_kernel", 1),
               ("instance_head", "instance_head_kernel", 2),
               ("grouping", "grouping_kernel", 1),
-              ("plane_interleave", "plane_interleave_kernel", 1))
+              ("plane_interleave", "plane_interleave_kernel", 1),
+              ("segment", "lookup_kernel", 3))
 # the bf16 stem must run on the tensor cores: its SASS (cuobjdump of the
 # built library) must hold mma instructions
 TENSOR_CORE_SASS = (("stem", "stem_kernel", "__nv_bfloat16"),)
@@ -649,9 +671,14 @@ def run() -> int:
             f.write(f"== {src}\n{text}\n")
     log(f"[build] {len(_native.SOURCES)} kernel sources in "
         f"{time.time() - t0:.1f} s")
+    # a library built by an earlier run gives no ptxas report: those
+    # sources are compiled again, to cubins in a temporary directory
+    stale = sorted({src for src, *_ in STACK_FREE if not logs[src]})
+    if stale:
+        log(f"[build] {stale} were built by an earlier run: compiled again "
+            "to cubins for ptxas' report")
+        logs.update(ptxas_logs(_native, stale))
     for src, kernel, n_inst in STACK_FREE:
-        if not logs[src]:  # empty: built by an earlier run
-            continue
         props = ptxas_props(logs[src], kernel)
         log(f"[build] ptxas {kernel} (each instantiation): "
             + "; ".join(f"{p['name']}: {p['stack']} bytes stack, "
@@ -738,6 +765,8 @@ def run() -> int:
                                      " b8 frame's inputs differ")
         log(f"[kernel repeats] {name}: two calls on each of the "
             f"{TIMING_MODE} b8 frame's inputs are bit-identical")
+
+    lookup_report = lookup_cases(torch, segment_kernels)
 
     r8 = results[TIMING_MODE][8]
     log(f"[outputs] {TIMING_MODE} b8: valid centers per image "
@@ -927,6 +956,9 @@ def run() -> int:
     torch.cuda.empty_cache()
     train_entries, train_report = train_phase(torch, card)
     entries.extend(train_entries)
+    # -- 8. validation ------------------------------------------------------
+    torch.cuda.empty_cache()
+    validation_report = validation_phase(torch, modules)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": card, "frame_ms": frame_ms, "detail": detail,
                    "launches": launches, "errors": errors,
@@ -936,7 +968,9 @@ def run() -> int:
                    "library_device": library_device,
                    "chain_sites": chain_report,
                    "grouping_center_sets": grouping_sets,
-                   "train": train_report}, f, indent=1)
+                   "lookup_cases": lookup_report,
+                   "train": train_report,
+                   "validation": validation_report}, f, indent=1)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))
@@ -991,6 +1025,233 @@ def grouping_center_sets(torch, args, ops_mod):
             f"{report[name]['device_ms']:.4f}, bound "
             f"{report[name]['bound_ms']:.4f}")
     return report
+
+
+def lookup_cases(torch, seg):
+    """The lookup kernel against its plain version, bit for bit, on the
+    cases of `tests/torch_kernel_cases.py::LOOKUP_CASES`: keys below 0
+    and from S up, D = 1, 2 and 3, P % 4 != 0, keys 4 bytes off a 16-byte
+    boundary, a table above 48 kB."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_kernel_cases as kc
+
+    report = {}
+    for name in kc.LOOKUP_CASES:
+        keys, tables, misaligned = kc.lookup_case(name)
+        n, p = keys.shape
+        flat = torch.from_numpy(keys).cuda().reshape(-1)
+        if misaligned:
+            buf = torch.zeros(n * p + 1, dtype=torch.int32, device="cuda")
+            buf[1:] = flat
+            flat = buf[1:]
+        inst = flat.view(n, p)
+        tab = torch.from_numpy(tables).cuda()
+        got = seg.segment_lookup(inst, tab)
+        want = seg.segment_lookup_plain(inst, tab)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"segment_lookup, case {name}: differs from "
+                                 "the plain version")
+        report[name] = {"n": n, "p": p, "d": tables.shape[1],
+                        "s": tables.shape[2], "misaligned": misaligned,
+                        "keys_out_of_range": int(((keys < 0) | (
+                            keys >= tables.shape[2])).sum())}
+    log(f"[lookup cases] equal to the plain version bit for bit: "
+        f"{json.dumps(report)}")
+    return report
+
+
+VALIDATION_TOL = {"ratio": 0.01, "deg": 1.0}  # card vs CPU, per metric
+VALIDATION_SMALL_EPOCHS = 8  # of 2 steps, before the card-vs-CPU check
+
+
+def validation_phase(torch, modules):
+    """Phase 8: validation in the port's trainer. (a) R18 96x128 f32 b2,
+    4 synthetic samples: 8 epochs of 2 train steps on the card, then
+    `run_validation`
+    on the card and, with the same weights, on the CPU (plain versions);
+    every metric within VALIDATION_TOL (a few of the 2 x 12,288 pixels may
+    flip where the f32 outputs of the two devices straddle a decision).
+    (b) The flagship with run 4's flags (R34-NBt1D, 640x480, b8, overfit
+    on one batch, validation on it) and bf16 mixed precision (run 4 itself
+    computes in f32) for 2 epochs,
+    validating each: the trainer's whole loop into a temporary run
+    directory; then one more validation with the launch counters set to
+    0 just before it and read just after (kernels 1-7 must have
+    launched; the trunk, 8, runs at batch <= 2 only), finite metrics, its
+    ms per validation batch; a checkpoint saved and loaded on the card
+    gives equal tensors."""
+    import tempfile
+
+    from emsanet_tpu_torch import config as pc
+    from emsanet_tpu_torch import train as trainer
+    from emsanet_tpu_torch.training.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from emsanet_tpu_torch.training.step import extract_device_batch
+
+    torch.set_grad_enabled(True)
+    report = {}
+    # (a) card against CPU
+    small = pc.validate_train_for_port(pc.EMSANetConfig(
+        model=pc.ModelConfig(
+            tasks=("semantic", "instance", "orientation", "scene"),
+            enable_panoptic=True, input_height=96, input_width=128,
+            rgb_encoder_backbone="resnet18",
+            depth_encoder_backbone="resnet18", fused_training=True,
+            head_decode_fusion=pc.best_head_decode_fusion(2)),
+        data=pc.DataConfig(dataset="synthetic", batch_size=2,
+                           validation_batch_size=2, synthetic_n_samples=4,
+                           n_workers=4, class_weighting="none"),
+        train=pc.TrainConfig(seed=0)))
+    card_run = trainer.setup(small, "cuda")
+    for epoch in range(VALIDATION_SMALL_EPOCHS):
+        for i, batch in enumerate(card_run.data.train_loader.batches(epoch)):
+            card_run.train_step(
+                extract_device_batch(batch, "cuda"),
+                trainer.dropout_generator_for(0, epoch, i, "cuda"))
+    cpu_run = trainer.setup(small, "cpu")
+    cpu_run.model.load_state_dict({k: v.cpu() for k, v in
+                                   card_run.model.state_dict().items()})
+    on_card = trainer.run_validation(card_run, 0)
+    on_cpu = trainer.run_validation(cpu_run, 0)
+    diffs = {}
+    for key, want in on_cpu.items():
+        got = on_card[key]
+        if not (math.isfinite(got) and math.isfinite(want)):
+            raise AssertionError(f"[validation] {key}: not finite "
+                                 f"(card {got}, CPU {want})")
+        tol = VALIDATION_TOL["deg" if key.endswith("_deg") else "ratio"]
+        diffs[key] = abs(got - want)
+        if diffs[key] > tol:
+            raise AssertionError(f"[validation] {key}: card {got} against "
+                                 f"CPU {want}, beyond {tol}")
+    log(f"[validation] R18 96x128 f32 b2, card vs CPU after "
+        f"{2 * VALIDATION_SMALL_EPOCHS} card steps: "
+        f"card {json.dumps(on_card)}; largest difference "
+        f"{max(diffs.values()):.3e} ({max(diffs, key=diffs.get)})")
+    report["card_vs_cpu"] = {"card": on_card, "cpu": on_cpu}
+    del card_run, cpu_run
+
+    # (b) the flagship with run 4's flags
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "results_samples", "train_run_r5", "run4_bce",
+                           "argsv.txt")) as fh:
+        argv = fh.read().split()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, _, used = trainer.parse_args(
+            argv + ["--mixed-precision", "--n-epochs", "2",
+                    "--validation-force-interval", "1",
+                    "--results-basepath", tmp])
+        t0 = time.perf_counter()
+        run = trainer.setup(cfg, "cuda")
+        run_dir = trainer.make_run_dir(cfg, used)
+        logs = trainer.train(run, run_dir)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        with open(os.path.join(run_dir, "metrics.csv")) as fh:
+            rows = fh.read().strip().splitlines()
+        if len(rows) != 3 or "valid_semantic_miou" not in rows[0]:
+            raise AssertionError(f"[validation] metrics.csv of the 2-epoch "
+                                 f"run: {rows[:1]}, {len(rows)} lines")
+        (loader,) = run.data.valid_loaders.values()
+        n_batches = len(loader)
+        reset_counts(modules)
+        t1 = time.perf_counter()
+        valid = trainer.run_validation(run, 2)
+        torch.cuda.synchronize()
+        valid_s = time.perf_counter() - t1
+        launches = counts(modules)
+        breakdown = validation_breakdown(torch, trainer, run)
+        missing = [name for name in PATH_KERNELS["decode-planes"]
+                   if name != "decoder_trunk" and launches[name] <= 0]
+        if missing:
+            raise AssertionError(f"[validation] kernels {missing} were not "
+                                 "launched by the flagship's validation")
+        bad = [k for k, v in {**logs, **valid}.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"[validation] non-finite metrics {bad}")
+        path = os.path.join(tmp, "ckpt.pt")
+        save_checkpoint(path, run.model, run.optimizer, 1, logs)
+        other = trainer.setup(cfg, "cuda")
+        load_checkpoint(path, other.model, other.optimizer)
+        for (k, a), (_, b) in zip(run.model.state_dict().items(),
+                                  other.model.state_dict().items()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[validation] checkpoint: {k} differs")
+        sa = run.optimizer.state_dict()["state"]
+        sb = other.optimizer.state_dict()["state"]
+        if sorted(sa) != sorted(sb) or not all(
+                torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i]
+                if torch.is_tensor(sa[i][k])):
+            raise AssertionError("[validation] checkpoint: the optimizer "
+                                 "state differs")
+    ms_batch = valid_s * 1e3 / n_batches
+    log(f"[validation] flagship R34 640x480 bf16 b8, run 4's flags, 2 "
+        f"epochs validating each: {loop_s:.1f} s (sanity check, setup and "
+        f"loop); epoch 1 {json.dumps(logs)}")
+    log(f"[validation] one more validation: {n_batches} batch(es), "
+        f"{ms_batch:.1f} ms per batch of 8; launches "
+        f"{json.dumps(launches)}; checkpoint saved and loaded on the card: "
+        "equal tensors")
+    log(f"[validation] where a batch's time goes (ms, medians of 3): "
+        f"{json.dumps(breakdown)}")
+    report["flagship"] = {"epoch_1": logs, "again": valid,
+                          "ms_per_batch": ms_batch, "launches": launches,
+                          "breakdown_ms": breakdown,
+                          "loop_s": loop_s, "head_decode_fusion":
+                              cfg.model.head_decode_fusion}
+    torch.set_grad_enabled(False)
+    return report
+
+
+def validation_breakdown(torch, trainer, run, rounds=3):
+    """Medians over `rounds` of the steps of `run_validation` on the
+    flagship's validation batch, timed apart on the host clock with the
+    device synchronized after each: the loader (8 samples through the
+    test preprocessor), the copy of the inputs to the card, the eval step
+    (forward and postprocessing), the predictions' copy to the host and
+    the task helpers."""
+    from emsanet_tpu_torch.datasets.metadata import get_dataset_config
+    from emsanet_tpu_torch.task_helper import (
+        PREDICTION_KEYS,
+        get_task_helpers,
+    )
+
+    (loader,) = run.data.valid_loaders.values()
+    times = {k: [] for k in ("load", "to_card", "eval_step", "to_host",
+                             "helpers")}
+    for _ in range(rounds):
+        helpers = get_task_helpers(run.cfg, get_dataset_config("synthetic"))
+        for th in helpers:
+            th.initialize()
+        t = time.perf_counter()
+        batches = list(loader.batches(0))
+        times["load"].append(time.perf_counter() - t)
+        for batch in batches:
+            t = time.perf_counter()
+            inputs = {k: torch.from_numpy(batch[k]).to(run.device)
+                      for k in trainer.EVAL_KEYS if k in batch}
+            torch.cuda.synchronize()
+            times["to_card"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            preds = run.eval_step(inputs)
+            torch.cuda.synchronize()
+            times["eval_step"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            preds = {k: trainer._host(preds[k]) for k in PREDICTION_KEYS
+                     if k in preds}
+            times["to_host"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            for th in helpers:
+                th.validation_step(batch, preds)
+            for th in helpers:
+                th.validation_epoch_end()
+            times["helpers"].append(time.perf_counter() - t)
+    return {k: statistics.median(v) * 1e3 for k, v in times.items()}
 
 
 def _timed_key(per_b, b):
@@ -1277,6 +1538,29 @@ def trunk_phases(torch, trunk, args, tag, runs=5):
             + " ".join("-" if v is None or math.isnan(v) else f"{v:.1f}"
                        for v in r["unit_us"]) + "]" for r in rows))
     return rows
+
+
+def ptxas_logs(native, sources):
+    """`ptxas -v`'s report of each source, compiled afresh to a cubin in a
+    temporary directory (one nvcc each, all at once)."""
+    import tempfile
+
+    flags = [f for f in native.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {src: subprocess.Popen(
+            [native._nvcc(), *flags, "-cubin", "-o",
+             os.path.join(tmp, f"{src}.cubin"),
+             str(native.CSRC / f"{src}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in sources}
+        out = {}
+        for src, proc in procs.items():
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError(f"nvcc -cubin failed for {src}:\n{text}")
+            out[src] = text
+    return out
 
 
 def ptxas_props(build_log, kernel):

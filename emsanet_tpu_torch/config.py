@@ -13,7 +13,8 @@ version, as the reference's interpret mode), 'off' never. Training
 ignores it, as the reference does.
 `EMSANetConfig.validate` applies the reference's post-parse rules that
 training needs (task weighting, learning-rate scaling by batch size / 8,
-forced raw depth). `best_head_decode_fusion` is the reference's mode
+forced raw depth, the validation split, input size and batch size
+defaults). `best_head_decode_fusion` is the reference's mode
 choice per batch size.
 
 `validate_for_port` and `validate_train_for_port` refuse, with a "not
@@ -138,11 +139,15 @@ class DataConfig:
 
     dataset: str = "nyuv2"
     split: str = "train"
+    validation_split: str = "valid"  # nyuv2 and sunrgbd: 'test'
     raw_depth: bool = False
     aug_scale_min: float = 1.0
     aug_scale_max: float = 1.4
     disable_color_flip_aug: bool = False
     batch_size: int = 8
+    validation_batch_size: Optional[int] = None  # 3 * batch_size
+    validation_input_height: Optional[int] = None  # the input size
+    validation_input_width: Optional[int] = None
     n_workers: int = 8
     class_weighting: str = "median-frequency"
     class_weighting_c: float = 1.02
@@ -165,6 +170,21 @@ class TrainConfig:
     orientation_kappa: float = 1.0
     semantic_loss_label_smoothing: float = 0.0
     scene_loss_label_smoothing: float = 0.0
+    # validation and checkpoints (`main.py`'s loop)
+    validation_skip: float = 0.0
+    validation_force_interval: int = 20
+    checkpointing_metrics: Tuple[str, ...] = ()
+    checkpointing_best_only: bool = False
+    checkpointing_skip: float = 0.0
+    resume_ckpt_interval: int = 20
+    resume_ckpt_filepath: Optional[str] = None
+    weights_filepath: Optional[str] = None
+    overfit_n_batches: int = -1
+    validation_on_train: bool = False
+    skip_sanity_check: bool = False
+    validation_only: bool = False
+    visualize_validation: bool = False
+    results_basepath: str = "./results"
     seed: int = 0
     n_devices: Optional[int] = None
     mixed_precision: bool = False
@@ -197,6 +217,16 @@ class EMSANetConfig:
             d.raw_depth = True
         if t.mixed_precision and m.compute_dtype == "float32":
             m.compute_dtype = "bfloat16"  # parameters stay float32
+        main_dataset = d.dataset.split(":")[0].split("[")[0]
+        if main_dataset in ("nyuv2", "sunrgbd") and (
+                d.validation_split == "valid"):
+            d.validation_split = "test"
+        if d.validation_input_height is None:
+            d.validation_input_height = m.input_height
+        if d.validation_input_width is None:
+            d.validation_input_width = m.input_width
+        if d.validation_batch_size is None:
+            d.validation_batch_size = 3 * d.batch_size
         return self
 
 
@@ -283,6 +313,8 @@ def validate_train_for_port(cfg: EMSANetConfig) -> EMSANetConfig:
         _refuse(f"n_devices={t.n_devices} (data parallel training)")
     if d.dataset != "synthetic":
         _refuse(f"dataset '{d.dataset}' (only 'synthetic' has a loader)")
+    if t.visualize_validation:
+        _refuse("visualize_validation (the visualization module)")
     if t.optimizer not in KNOWN_OPTIMIZERS:
         raise ValueError(f"Unknown optimizer: '{t.optimizer}'")
     if t.learning_rate_scheduler != "onecycle":

@@ -1,23 +1,66 @@
-"""The training loader (counterpart: the `DataLoader` of
-`emsanet_tpu/data.py`, :118-190, in its 'thread' worker mode).
+"""Loaders of the train and validation data (counterpart:
+`emsanet_tpu/data.py`: `RandomSamplerSubset`, the `DataLoader` in its
+'thread' worker mode, `DataHelper`, `TrainSubsetView` and
+`get_datahelper`).
 
-Batches have a fixed shape: the train loader shuffles per epoch and drops
-the last partial batch. Each sample is preprocessed with its own
-generator, seeded from (seed + epoch) * 1_000_003 + index, so a batch is
-the same whatever the number of workers, and the same as the JAX
-package's. Worker threads preprocess samples of the next `prefetch`
-batches while the consumer trains on the current one.
+Batches have a fixed shape: the train loader shuffles per epoch (or
+draws a sampler's subset) and drops the last partial batch; a validation
+loader keeps the dataset's order and pads its last batch by repeating
+the last sample, with `_valid_mask` marking the real ones. Each sample
+is preprocessed with its own generator, seeded from (seed + epoch) *
+1_000_003 + index, so a batch is the same whatever the number of
+workers, and the same as the JAX package's. Worker threads preprocess
+the samples of the current and the next `prefetch` batches while the
+consumer works on earlier ones (a single batch too: its samples load in
+parallel).
+
+`--overfit-n-batches` trains on a fixed subset of that many batches
+(`RandomSamplerSubset`, deterministic), and `--validation-on-train`
+validates on that subset through the test preprocessor
+(`TrainSubsetView`).
 """
 
 from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from emsanet_tpu_torch.config import NotPortedError
+from emsanet_tpu_torch.datasets.synthetic import get_dataset
 from emsanet_tpu_torch.preprocessing.collate import batch_collate
+
+
+class RandomSamplerSubset:
+    """A random subset of `subset` (a fraction in (0, 1]) of the samples,
+    the same every epoch: the reference's deterministic mode, the one
+    `--overfit-n-batches` uses (its mode that draws anew each epoch has
+    no caller here)."""
+
+    def __init__(self, n_samples: int, subset: float, seed: int = 0):
+        self.n_samples = n_samples
+        self.subset = float(subset)
+        self.seed = seed
+
+    @property
+    def n_draw(self) -> int:
+        return max(int(round(self.n_samples * self.subset)), 1)
+
+    def indices(self, epoch: int) -> np.ndarray:
+        rng = np.random.default_rng(self.seed)
+        out = rng.permutation(self.n_samples)[:self.n_draw]
+        rng.shuffle(out)
+        return out
+
+
+def overfit_sampler(n_samples: int, overfit_n_batches: int,
+                    batch_size: int, seed: int) -> RandomSamplerSubset:
+    """The fixed subset of `overfit_n_batches` batches."""
+    return RandomSamplerSubset(
+        n_samples, min(overfit_n_batches * batch_size / max(n_samples, 1),
+                       1.0), seed=seed)
 
 
 def _load_one(dataset, idx: int, rng_seed: int) -> dict:
@@ -35,8 +78,10 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, n_workers: int = 4, seed: int = 0,
-                 prefetch: int = 2):
+                 prefetch: int = 2,
+                 sampler: Optional[RandomSamplerSubset] = None):
         self.dataset = dataset
+        self.sampler = sampler
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -49,11 +94,14 @@ class DataLoader:
         self.prefetch = prefetch
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = (self.sampler.n_draw if self.sampler is not None
+             else len(self.dataset))
         return n // self.batch_size if self.drop_last else -(
             -n // self.batch_size)
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
+        if self.sampler is not None:
+            return self.sampler.indices(epoch)
         if self.shuffle:
             return np.random.default_rng(self.seed + epoch).permutation(
                 len(self.dataset))
@@ -78,7 +126,7 @@ class DataLoader:
         def seed_of(i):
             return (self.seed + epoch) * 1_000_003 + int(i)
 
-        if self.n_workers <= 1 or n_batches <= 1:
+        if self.n_workers <= 1:
             for b in range(n_batches):
                 idxs, n_real = self._batch_indices(indices, b)
                 yield self._collate([_load_one(self.dataset, int(i),
@@ -99,3 +147,84 @@ class DataLoader:
                 if b + len(pending) + 1 < n_batches:
                     pending.append(submit(b + len(pending) + 1))
                 yield self._collate(samples, n_real)
+
+
+class DataHelper:
+    """The train loader and the validation loaders, one per camera."""
+
+    def __init__(self, dataset_train, dataset_valid, batch_size: int,
+                 valid_batch_size: int, n_workers: int = 4,
+                 overfit_n_batches: int = -1, seed: int = 0):
+        self.dataset_train = dataset_train
+        self.dataset_valid = dataset_valid
+        sampler = None
+        if overfit_n_batches > 0:
+            sampler = overfit_sampler(len(dataset_train), overfit_n_batches,
+                                      batch_size, seed)
+        self.train_loader = DataLoader(
+            dataset_train, batch_size, shuffle=True, drop_last=True,
+            n_workers=n_workers, seed=seed, sampler=sampler)
+        cameras = dataset_valid.cameras
+        if len(cameras) > 1:
+            raise NotPortedError("not ported yet: validation per camera of "
+                                 "a dataset with several cameras")
+        self.valid_loaders: Dict[str, DataLoader] = {
+            cameras[0] if cameras else "default": DataLoader(
+                dataset_valid, valid_batch_size, shuffle=False,
+                drop_last=False, n_workers=n_workers, seed=seed)}
+
+    def set_train_preprocessor(self, preprocessor):
+        self.dataset_train.preprocessor = preprocessor
+
+    def set_valid_preprocessor(self, preprocessor):
+        self.dataset_valid.preprocessor = preprocessor
+
+
+class TrainSubsetView:
+    """A dataset restricted to fixed indices of a base dataset, with the
+    base's preprocessor hook (`--validation-on-train`)."""
+
+    def __init__(self, base, indices):
+        self._base = base
+        self._indices = np.asarray(indices, dtype=np.int64)
+
+    def __len__(self):
+        return len(self._indices)
+
+    def load_raw(self, idx):
+        return self._base.load_raw(int(self._indices[idx]))
+
+    @property
+    def cameras(self):
+        return self._base.cameras
+
+    @property
+    def preprocessor(self):
+        return self._base.preprocessor
+
+    @preprocessor.setter
+    def preprocessor(self, value):
+        self._base.preprocessor = value
+
+
+def get_datahelper(cfg) -> DataHelper:
+    """The data of a configuration (EMSANetConfig; 'synthetic' only). The
+    validation data is the train split's overfit subset with
+    `validation_on_train` and `overfit_n_batches`, the whole train split
+    with `validation_on_train` alone, else the validation split."""
+    d, m, t = cfg.data, cfg.model, cfg.train
+    dataset_train = get_dataset(d, m, d.split)
+    if t.validation_on_train:
+        dataset_valid = get_dataset(d, m, d.split)
+        if t.overfit_n_batches > 0:
+            sampler = overfit_sampler(len(dataset_train),
+                                      t.overfit_n_batches, d.batch_size,
+                                      t.seed)
+            dataset_valid = TrainSubsetView(dataset_valid,
+                                            np.sort(sampler.indices(0)))
+    else:
+        dataset_valid = get_dataset(d, m, d.validation_split)
+    return DataHelper(dataset_train, dataset_valid, d.batch_size,
+                      d.validation_batch_size or d.batch_size,
+                      n_workers=d.n_workers,
+                      overfit_n_batches=t.overfit_n_batches, seed=t.seed)

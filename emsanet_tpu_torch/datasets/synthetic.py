@@ -79,6 +79,10 @@ class SyntheticDataset:
     def __len__(self) -> int:
         return self.n_samples
 
+    @property
+    def cameras(self) -> Tuple[str, ...]:
+        return ("synth0",)
+
     def __getitem__(self, idx: int) -> dict:
         sample = self.load_raw(idx)
         if self.preprocessor is not None:

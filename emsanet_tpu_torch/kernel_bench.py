@@ -17,7 +17,11 @@ times, from the package of checkout DIR (default: this one):
 - `interleave_planes` on the decode-planes frame's 7 maps (six of 4-byte
   words and the bool foreground) at b1 / b8;
 - `segment_lookup` against `torch.gather` (D = 2 tables of 65 entries),
-  in 5 alternating rounds at b1 / b8.
+  in 5 alternating rounds at b1 / b8. Its kernel (redesigned for the
+  H100) takes 4 pixels a thread with 16-byte loads and evict-first
+  stores, in a grid of at most one wave that stages each image's table
+  once per block; its wrapper does one check, one allocation and one
+  ctypes call bound once.
 
 Per case: the wrapper's ms (CUDA events, mean of 20 calls) and the
 device ms of one call (torch.profiler: every kernel and memset the

@@ -89,7 +89,6 @@ class Upsampling(nn.Module):
         if self.training:
             if self.defer_conv_train and self.method == "learned-3x3-zeropad":
                 return x, weight
-            weight = weight.to(x.dtype)
         elif self.method == "learned-3x3-zeropad" and (
             h * w >= POLYPHASE_MIN_PIXELS
         ):
@@ -98,6 +97,7 @@ class Upsampling(nn.Module):
             if self.defer_interleave:
                 return upsample2x_depthwise_polyphase_deferred(x, weight)
             return upsample2x_depthwise_polyphase(x, weight)
+        weight = weight.to(x.dtype)  # f32 parameters of a bf16 train model
         up = nearest_x2(x)
         if self.method == "learned-3x3":
             up = F.pad(up, (1, 1, 1, 1), mode="replicate")

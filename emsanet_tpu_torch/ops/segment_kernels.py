@@ -11,7 +11,9 @@ The histogram kernel cuts each image into spans of whole tiles of
 pixels, one block each, and writes one partial table per block to a
 workspace that a second launch adds up in a fixed order. `hist_plan`
 sizes the spans from the card's SM count and the kernel's blocks per SM;
-the tile and the workspace's size come from `csrc/segment.cu`.
+the tile and the workspace's size come from `csrc/segment.cu`. The
+lookup kernel takes 4 pixels a thread, in a grid of at most one wave
+that stages each image's table once per block.
 """
 
 from __future__ import annotations
@@ -167,21 +169,50 @@ def segment_lookup_plain(inst: torch.Tensor,
     return torch.where(ok[:, None, :], out, 0.0)
 
 
-def segment_lookup(inst: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
-    """Per-pixel lookups: (N, P) keys + (N, D, S) tables -> (N, D, P)."""
-    if not inst.is_cuda:
-        return segment_lookup_plain(inst, tables)
+_LOOKUP_LAUNCH = None  # the bound C function, set on the first launch
+
+
+def _lookup_launch():
+    global _LOOKUP_LAUNCH
+    _LOOKUP_LAUNCH = _native.bind("segment", "segment_lookup_launch", 8,
+                                  int_args=[0, 1, 2, 3])
+    return _LOOKUP_LAUNCH
+
+
+def _lookup_shape(inst: torch.Tensor,
+                  tables: torch.Tensor) -> Tuple[int, int, int, int]:
+    """(N, P, D, S); raises unless inst is (N, P) int32 and tables
+    (N, D, S) f32 with D, S >= 1, both contiguous on one card."""
+    shape, tshape = inst.shape, tables.shape
+    if (len(shape) == 2 and len(tshape) == 3 and tshape[0] == shape[0]
+            and tshape[1] > 0 and tshape[2] > 0
+            and inst.dtype is torch.int32 and tables.dtype is torch.float32
+            and inst.is_contiguous() and tables.is_contiguous()
+            and tables.get_device() == inst.get_device()):
+        return shape[0], shape[1], tshape[1], tshape[2]
     _native.require_cuda_tensor(inst, "inst", (torch.int32,), 2)
     _native.require_cuda_tensor(tables, "tables", (torch.float32,), 3)
-    n, p = inst.shape
-    d, s = tables.shape[1], tables.shape[2]
-    if tables.shape[0] != n:
-        raise ValueError("segment_lookup: tables must be (N, D, S)")
-    out = torch.empty((n, d, p), dtype=torch.float32, device=inst.device)
-    fn = _native.bind("segment", "segment_lookup_launch", 8,
-                      int_args=[0, 1, 2, 3])
-    err = fn(n, p, d, s, inst.data_ptr(), tables.data_ptr(), out.data_ptr(),
-             _native.stream_ptr(inst))
+    raise ValueError(f"segment_lookup: tables must be (N, D, S) with D, S >= 1"
+                     f" on the keys' card; keys {tuple(shape)} on "
+                     f"{inst.device}, tables {tuple(tshape)} on "
+                     f"{tables.device}")
+
+
+def segment_lookup(inst: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Per-pixel lookups: (N, P) keys + (N, D, S) tables -> (N, D, P).
+
+    On the card, its host work is: one check that also reads the shapes
+    (`_lookup_shape`: a chain of attribute reads), one `new_empty`, three
+    `data_ptr` reads, the raw stream, one call of the C function bound on
+    the first launch, the counter and the error check.
+    """
+    if not inst.is_cuda:
+        return segment_lookup_plain(inst, tables)
+    n, p, d, s = _lookup_shape(inst, tables)
+    out = inst.new_empty((n, d, p), dtype=torch.float32)
+    err = (_LOOKUP_LAUNCH or _lookup_launch())(
+        n, p, d, s, inst.data_ptr(), tables.data_ptr(), out.data_ptr(),
+        _native.stream_ptr(inst))
     _SEGMENT_LOOKUP.launches += 1
     _native.check(err, "segment_lookup")
     return out

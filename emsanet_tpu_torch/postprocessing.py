@@ -406,9 +406,9 @@ def panoptic_merge_flat(
                if orientation_vectors is not None else
                torch.zeros((n, n_pix, 1), dtype=torch.float32,
                            device=semantic_idx.device))
+    inst_i32 = instance_seg.to(torch.int32).contiguous()  # both passes
     hist, sums = segment_ops.segment_hist_and_sums(
-        instance_seg.to(torch.int32).contiguous(),
-        semantic_idx.to(torch.int32).contiguous(),
+        inst_i32, semantic_idx.to(torch.int32).contiguous(),
         vote_weight.contiguous(), flat_or,
         num_segments=k + 1, num_classes=n_classes,
     )
@@ -418,13 +418,13 @@ def panoptic_merge_flat(
     inst_area = hist.sum(dim=-1)
     inst_semantic = torch.where(inst_has_votes, inst_semantic, void_label)
 
-    center_score_padded = torch.cat(
-        [torch.zeros((n, 1), dtype=centers_score.dtype,
-                     device=centers_score.device), centers_score], dim=1)
-    tables = torch.stack([inst_semantic.float(), center_score_padded.float()],
-                         dim=1)
-    looked_up = segment_ops.segment_lookup(
-        instance_seg.to(torch.int32).contiguous(), tables.contiguous())
+    # (N, 2, K + 1): each instance's class and its center's score (0 for
+    # key 0, no instance)
+    tables = torch.zeros((n, 2, k + 1), dtype=torch.float32,
+                         device=semantic_idx.device)
+    tables[:, 0] = inst_semantic
+    tables[:, 1, 1:] = centers_score
+    looked_up = segment_ops.segment_lookup(inst_i32, tables)
     pixel_inst_sem = looked_up[:, 0].to(torch.int32)
     pixel_inst_score = looked_up[:, 1]
 

@@ -1,15 +1,17 @@
-"""Host-side preprocessing of the train phase, in numpy.
+"""Host-side preprocessing of the train and test phases, in numpy.
 
-A copy of the train-phase transforms of
-`emsanet_tpu/preprocessing/transforms.py` (`get_preprocessor(...,
-phase="train", multiscale_downscales=...)`), in the order of
-`emsanet/preprocessing.py`: clear stuff instance ids -> random resize ->
-random crop -> HSV jitter -> horizontal flip -> multiscale sub-samples ->
-instance targets -> orientation targets -> normalize -> canonicalize.
-Each transform is the JAX package's numpy path; that package also has a
-native C++ library for some of them, whose results may differ in the
-last bit, so the tests compare with it switched off. The test phase
-(validation) is not ported yet.
+A copy of the transforms of `emsanet_tpu/preprocessing/transforms.py`
+that `get_preprocessor(..., phase="train" or "test")` composes, in the
+order of `emsanet/preprocessing.py`: [clone raw inputs] -> clear stuff
+instance ids -> train: random resize -> random crop -> HSV jitter ->
+horizontal flip | test: panoptic target -> full-resolution copies ->
+resize -> multiscale sub-samples -> instance targets -> orientation
+targets -> normalize -> canonicalize. Each transform is the JAX
+package's numpy path; that package also has a native C++ library for
+some of them, whose results may differ in the last bit, so the tests
+compare with it switched off. Validation at full resolution and the
+ScanNet benchmark mapping are not ported (the port's datasets do not
+need them).
 
 Per-sample randomness comes from `sample['_rng']`, a
 `np.random.Generator` the loader seeds per (epoch, index).
@@ -20,6 +22,11 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+
+from emsanet_tpu_torch.metrics import deeplab_merge_numpy
+
+APPLIED_PREPROCESSING_KEY = "_applied_preprocessing"
+DEFAULT_CLONE_KEY = "_no_preprocessing"
 
 # ImageNet statistics (reference NormalizeRGB)
 RGB_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -93,6 +100,85 @@ class Compose:
     def __call__(self, sample: dict) -> dict:
         for t in self.transforms:
             sample = t(sample)
+        return sample
+
+
+class CloneEntries:
+    """Copies of the raw inputs under DEFAULT_CLONE_KEY (for showing the
+    inputs beside the predictions)."""
+
+    def __init__(self, keys: Optional[Sequence[str]] = None):
+        self.keys = keys
+
+    def __call__(self, sample: dict) -> dict:
+        keys = self.keys or [k for k in sample if not k.startswith("_")]
+        sample[DEFAULT_CLONE_KEY] = {
+            k: (sample[k].copy() if isinstance(sample[k], np.ndarray)
+                else sample[k])
+            for k in keys if k in sample
+        }
+        return sample
+
+
+class FullResCloner:
+    """Full-resolution copies as '<key>_fullres'."""
+
+    def __init__(self, keys_to_keep_fullres: Sequence[str],
+                 ignore_missing_keys: bool = True):
+        self.keys = tuple(keys_to_keep_fullres)
+        self.ignore_missing = ignore_missing_keys
+
+    @staticmethod
+    def get_fullres_key(key: str) -> str:
+        return f"{key}_fullres"
+
+    def __call__(self, sample: dict) -> dict:
+        for k in self.keys:
+            if k not in sample:
+                if self.ignore_missing:
+                    continue
+                raise KeyError(k)
+            v = sample[k]
+            sample[self.get_fullres_key(k)] = (
+                v.copy() if isinstance(v, np.ndarray) else v)
+        return sample
+
+
+class Resize:
+    """Deterministic resize; records the original shape under
+    APPLIED_PREPROCESSING_KEY."""
+
+    def __init__(self, height: int, width: int):
+        self.height = height
+        self.width = width
+
+    def __call__(self, sample: dict) -> dict:
+        trace = sample.setdefault(APPLIED_PREPROCESSING_KEY, [])
+        for k in _GEOMETRY_KEYS:
+            if k in sample:
+                if "resize" not in [t[0] for t in trace]:
+                    trace.append(("resize", {
+                        "orig_height": sample[k].shape[0],
+                        "orig_width": sample[k].shape[1],
+                    }))
+                sample[k] = _resize_sample_key(k, sample[k], self.height,
+                                               self.width)
+        return sample
+
+
+class PanopticTargetGenerator:
+    """Ground-truth panoptic map semantic * 2**16 + instance."""
+
+    def __init__(self, semantic_classes_is_thing: Sequence[bool],
+                 label_divisor: int = 2**16):
+        self.is_thing = np.asarray(semantic_classes_is_thing, bool)
+        self.label_divisor = label_divisor
+
+    def __call__(self, sample: dict) -> dict:
+        if "semantic" in sample and "instance" in sample:
+            sample["panoptic"] = deeplab_merge_numpy(
+                sample["semantic"], sample["instance"], self.is_thing,
+                label_divisor=self.label_divisor)
         return sample
 
 
@@ -415,25 +501,37 @@ class ToArrays:
 
 
 def get_preprocessor(cfg, dataset_config, phase: str,
-                     multiscale_downscales: Optional[Tuple[int, ...]] = None
-                     ) -> Compose:
-    """The train-phase transform chain. cfg: EMSANetConfig;
-    dataset_config: `datasets.metadata.DatasetConfig`."""
-    if phase != "train":
-        raise NotImplementedError(f"not ported yet: the '{phase}' phase "
-                                  "preprocessor (validation)")
+                     multiscale_downscales: Optional[Tuple[int, ...]] = None,
+                     keep_raw_inputs: bool = False) -> Compose:
+    """The transform chain of a phase ('train' or 'test'). cfg:
+    EMSANetConfig; dataset_config: `datasets.metadata.DatasetConfig`.
+    The test phase resizes to the validation input size (default: the
+    model's input size)."""
+    if phase not in ("train", "test"):
+        raise ValueError(f"phase must be 'train' or 'test', got '{phase}'")
     m, d = cfg.model, cfg.data
     is_thing = dataset_config.classes_is_thing
     has_instance = "instance" in m.tasks
     transforms = []
+    if keep_raw_inputs:
+        transforms.append(CloneEntries())
     if has_instance:
         transforms.append(InstanceClearStuffIDs(is_thing))
-    transforms.extend([
-        RandomResize(d.aug_scale_min, d.aug_scale_max),
-        RandomCrop(m.input_height, m.input_width),
-    ])
-    if not d.disable_color_flip_aug:
-        transforms.extend([RandomHSVJitter(), RandomHorizontalFlip(0.5)])
+    if phase == "train":
+        transforms.extend([
+            RandomResize(d.aug_scale_min, d.aug_scale_max),
+            RandomCrop(m.input_height, m.input_width),
+        ])
+        if not d.disable_color_flip_aug:
+            transforms.extend([RandomHSVJitter(), RandomHorizontalFlip(0.5)])
+    else:
+        if "semantic" in m.tasks and has_instance:
+            transforms.append(PanopticTargetGenerator(is_thing))
+        transforms.append(FullResCloner(
+            ("rgb", "depth", "semantic", "normal", "instance", "panoptic"),
+            ignore_missing_keys=True))
+        transforms.append(Resize(d.validation_input_height or m.input_height,
+                                 d.validation_input_width or m.input_width))
 
     if multiscale_downscales:
         keys = ["identifier"]

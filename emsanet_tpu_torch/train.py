@@ -1,57 +1,95 @@
-"""Train the port's EMSANet on one GPU.
+"""Train and validate the port's EMSANet on one GPU.
 
     python -m emsanet_tpu_torch.train --dataset synthetic --n-epochs 2 \\
         --tasks semantic instance orientation scene --enable-panoptic \\
-        --mixed-precision --fused-training
+        --mixed-precision --fused-training --results-basepath /tmp/runs
 
-Counterpart of the repository's `main.py` setup and epoch loop: dataset,
-train preprocessor (with the `_down_{s}` targets of multiscale
-supervision), median-frequency class weights, model, optimizer, the
-OneCycle learning rate set once per epoch, and a dropout generator per
-step seeded from (seed + 1, epoch * 100003 + step). Flags take
-`emsanet_tpu/utils/cli.py`'s names. It prints one line of mean losses
-per epoch. Validation, checkpoints, CSV and wandb logging are not ported
-yet. It runs on the card unless `--device cpu` is given, and raises
-without one.
+Counterpart of the repository's `main.py` (:78-425). A run directory
+`<results-basepath>/<dataset>/run_<timestamp>/` gets `args.json`,
+`argsv.txt`, `checkpoints/`, `artifacts/` (each helper's artifacts per
+validation, as `.npy`), `metrics.csv` (one row per epoch), `error.log`
+and an error checkpoint when an epoch raises, and a `finished` marker at
+the end. Before training, one step runs on a copy of the model and the
+optimizer (the sanity check; `--skip-sanity-check` skips it). Each epoch
+sets the OneCycle learning rate, trains (a dropout generator per step,
+seeded from (seed + 1, epoch * 100003 + step)), validates where
+`main.py`'s rule says so (from `--validation-skip` x epochs on, every
+`--validation-force-interval` epochs, and at the last), keeps a
+checkpoint per improved `--checkpointing-metrics` entry, a resume
+checkpoint every `--resume-ckpt-interval` epochs and at the end, and
+prints one JSON line of its logs. Validation runs the eval step (the
+forward in eval mode and the postprocessing on the device, the heads as
+`--head-decode-fusion` says; 'auto' picks the reference's mode for the
+validation batch) and the task helpers' metrics on the host.
+`--validation-only` validates once and stops; `--resume-ckpt-filepath`
+continues a run from its checkpoint, `--weights-filepath` starts from a
+checkpoint's model weights. `--validation-on-train` with
+`--overfit-n-batches` validates on the overfit subset of the train data.
+
+Flags take `emsanet_tpu/utils/cli.py`'s names. Data is 'synthetic' only.
+Refused, with an error: `fused_inference=False` (the config), pretrained
+backbone files, `--visualize-validation` and wandb logging. It runs on
+the card unless `--device cpu` is given, and raises without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
+import datetime
 import json
+import os
 import sys
 import time
-from typing import Optional, Sequence, Tuple
+import traceback
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from emsanet_tpu_torch.config import (
     DataConfig,
     EMSANetConfig,
     ModelConfig,
+    NotPortedError,
     TrainConfig,
+    best_head_decode_fusion,
     validate_train_for_port,
 )
-from emsanet_tpu_torch.data import DataLoader
+from emsanet_tpu_torch.data import DataHelper, get_datahelper
 from emsanet_tpu_torch.datasets.metadata import get_dataset_config
-from emsanet_tpu_torch.datasets.synthetic import get_dataset
 from emsanet_tpu_torch.device import resolve_device
 from emsanet_tpu_torch.models.emsanet import build_train_model
 from emsanet_tpu_torch.preprocessing.transforms import get_preprocessor
+from emsanet_tpu_torch.task_helper import PREDICTION_KEYS, get_task_helpers
+from emsanet_tpu_torch.training.checkpoint import (
+    CheckpointHelper,
+    load_checkpoint,
+    save_checkpoint,
+)
+from emsanet_tpu_torch.training.csv_logger import CSVLogger
 from emsanet_tpu_torch.training.lr_schedule import get_lr_fn
 from emsanet_tpu_torch.training.optim import get_optimizer, set_learning_rate
 from emsanet_tpu_torch.training.step import (
     extract_device_batch,
+    make_eval_step,
     make_train_step,
 )
 
+EVAL_KEYS = ("rgb", "depth", "instance_foreground")  # the eval step's input
 
-def parse_args(argv: Optional[Sequence[str]] = None
-               ) -> Tuple[EMSANetConfig, str]:
-    """(validated configuration, device name)."""
+
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--results-basepath", default="./results")
+    p.add_argument("--skip-sanity-check", action="store_true")
+    p.add_argument("--validation-only", action="store_true")
+    p.add_argument("--visualize-validation", action="store_true")
+    p.add_argument("--wandb-mode", default="disabled",
+                   choices=("online", "offline", "disabled"))
     p.add_argument("--tasks", nargs="+", default=("semantic",))
     p.add_argument("--enable-panoptic", action="store_true")
     p.add_argument("--input-height", type=int, default=480)
@@ -59,6 +97,12 @@ def parse_args(argv: Optional[Sequence[str]] = None
     p.add_argument("--dropout-p", type=float, default=0.1)
     p.add_argument("--rgb-encoder-backbone", default="resnet34")
     p.add_argument("--depth-encoder-backbone", default="resnet34")
+    p.add_argument("--no-pretrained-backbone", action="store_true",
+                   help="the port starts from the reference's random "
+                   "initialization in any case")
+    for what in ("", "rgb-", "depth-"):
+        p.add_argument(f"--{what}encoder-backbone-pretrained-weights-"
+                       "filepath", default=None)
     for task in ("semantic", "instance"):
         p.add_argument(f"--{task}-decoder-block-dropout-p", type=float,
                        default=0.2)
@@ -69,8 +113,17 @@ def parse_args(argv: Optional[Sequence[str]] = None
                    choices=("float32", "bfloat16"))
     p.add_argument("--mixed-precision", action="store_true")
     p.add_argument("--fused-training", action="store_true")
+    p.add_argument("--fused-inference", action="store_true",
+                   help="the fused inference path of validation (the "
+                   "port's only one; on without the flag too)")
+    p.add_argument("--head-decode-fusion", default=None,
+                   choices=("decode", "decode-both", "decode-planes",
+                            "interleave", "auto"))
     p.add_argument("--n-epochs", type=int, default=500)
     p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--validation-batch-size", type=int, default=None)
+    p.add_argument("--validation-input-height", type=int, default=None)
+    p.add_argument("--validation-input-width", type=int, default=None)
     p.add_argument("--optimizer", default="sgd",
                    choices=("sgd", "adam", "adamw", "radam"))
     p.add_argument("--learning-rate", type=float, default=0.01)
@@ -85,9 +138,11 @@ def parse_args(argv: Optional[Sequence[str]] = None
     p.add_argument("--semantic-loss-label-smoothing", type=float,
                    default=0.0)
     p.add_argument("--scene-loss-label-smoothing", type=float, default=0.0)
+    weightings = ("median-frequency", "logarithmic", "linear", "none")
     p.add_argument("--semantic-class-weighting", default="median-frequency",
-                   choices=("median-frequency", "logarithmic", "linear",
-                            "none"))
+                   choices=weightings)
+    p.add_argument("--class-weighting", default=None, choices=weightings,
+                   help="alias of --semantic-class-weighting; wins if given")
     p.add_argument("--dataset", default="nyuv2")
     p.add_argument("--synthetic-n-samples", type=int, default=16)
     p.add_argument("--aug-scale-min", type=float, default=1.0)
@@ -96,7 +151,34 @@ def parse_args(argv: Optional[Sequence[str]] = None
                    action="store_true")
     p.add_argument("--n-workers", type=int, default=8)
     p.add_argument("--n-devices", type=int, default=None)
-    a = p.parse_args(argv)
+    p.add_argument("--overfit-n-batches", type=int, default=-1)
+    p.add_argument("--validation-on-train", action="store_true")
+    p.add_argument("--validation-skip", type=float, default=0.0)
+    p.add_argument("--validation-force-interval", type=int, default=20)
+    p.add_argument("--checkpointing-metrics", nargs="+", default=())
+    p.add_argument("--checkpointing-best-only", action="store_true")
+    p.add_argument("--checkpointing-skip", type=float, default=0.0)
+    p.add_argument("--resume-ckpt-interval", type=int, default=20)
+    p.add_argument("--resume-ckpt-filepath", default=None)
+    p.add_argument("--weights-filepath", default=None)
+    return p
+
+
+def parse_args(argv: Optional[Sequence[str]] = None
+               ) -> Tuple[EMSANetConfig, str, List[str]]:
+    """(validated configuration, device name, the argv parsed)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    a = build_parser().parse_args(argv)
+    for what in ("", "rgb_", "depth_"):
+        if getattr(a, f"{what}encoder_backbone_pretrained_weights_filepath"):
+            raise NotPortedError("not ported yet: pretrained backbone "
+                                 "weights (ROADMAP A4)")
+    if a.wandb_mode != "disabled":
+        raise NotPortedError("not ported yet: wandb logging")
+    head_decode_fusion = a.head_decode_fusion or "decode"
+    if head_decode_fusion == "auto":  # as emsanet_tpu/utils/cli.py
+        head_decode_fusion = best_head_decode_fusion(
+            a.validation_batch_size or a.batch_size)
     model = ModelConfig(
         tasks=tuple(a.tasks), enable_panoptic=a.enable_panoptic,
         input_height=a.input_height, input_width=a.input_width,
@@ -110,12 +192,16 @@ def parse_args(argv: Optional[Sequence[str]] = None
             a.instance_no_multiscale_supervision),
         instance_center_sigma=a.instance_center_sigma,
         compute_dtype=a.compute_dtype, fused_training=a.fused_training,
+        head_decode_fusion=head_decode_fusion,
     )
     data = DataConfig(
         dataset=a.dataset, batch_size=a.batch_size, n_workers=a.n_workers,
+        validation_batch_size=a.validation_batch_size,
+        validation_input_height=a.validation_input_height,
+        validation_input_width=a.validation_input_width,
         aug_scale_min=a.aug_scale_min, aug_scale_max=a.aug_scale_max,
         disable_color_flip_aug=a.disable_color_flip_aug,
-        class_weighting=a.semantic_class_weighting,
+        class_weighting=a.class_weighting or a.semantic_class_weighting,
         synthetic_n_samples=a.synthetic_n_samples,
     )
     train = TrainConfig(
@@ -129,32 +215,69 @@ def parse_args(argv: Optional[Sequence[str]] = None
         orientation_kappa=a.orientation_kappa,
         semantic_loss_label_smoothing=a.semantic_loss_label_smoothing,
         scene_loss_label_smoothing=a.scene_loss_label_smoothing,
+        validation_skip=a.validation_skip,
+        validation_force_interval=a.validation_force_interval,
+        checkpointing_metrics=tuple(a.checkpointing_metrics),
+        checkpointing_best_only=a.checkpointing_best_only,
+        checkpointing_skip=a.checkpointing_skip,
+        resume_ckpt_interval=a.resume_ckpt_interval,
+        resume_ckpt_filepath=a.resume_ckpt_filepath,
+        weights_filepath=a.weights_filepath,
+        overfit_n_batches=a.overfit_n_batches,
+        validation_on_train=a.validation_on_train,
+        skip_sanity_check=a.skip_sanity_check,
+        validation_only=a.validation_only,
+        visualize_validation=a.visualize_validation,
+        results_basepath=a.results_basepath,
         seed=a.seed, n_devices=a.n_devices, mixed_precision=a.mixed_precision,
     )
     cfg = EMSANetConfig(model=model, data=data, train=train)
-    return validate_train_for_port(cfg), a.device
+    return validate_train_for_port(cfg), a.device, argv
 
 
-def setup(cfg: EMSANetConfig, device=None):
-    """(model, optimizer, train_step, loader, lr_fn) of a configuration."""
+@dataclasses.dataclass
+class Run:
+    """What a configuration trains and validates with."""
+
+    cfg: EMSANetConfig
+    device: torch.device
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    class_weights: Optional[torch.Tensor]
+    train_step: Any
+    eval_step: Any
+    data: DataHelper
+    lr_fn: Any
+
+
+def setup(cfg: EMSANetConfig, device=None) -> Run:
+    """The model (the reference's initialization from the seed), the
+    optimizer, the train and eval steps and the data of a configuration."""
     dev = resolve_device(device)
     m, d, t = cfg.model, cfg.data, cfg.train
     ds_config = get_dataset_config(d.dataset)
-    dataset = get_dataset(d, m, d.split)
-    dataset.preprocessor = get_preprocessor(
+    data = get_datahelper(cfg)
+    data.set_train_preprocessor(get_preprocessor(
         cfg, ds_config, "train",
-        multiscale_downscales=m.side_output_downscales or None)
-    loader = DataLoader(dataset, d.batch_size, shuffle=True, drop_last=True,
-                        n_workers=d.n_workers, seed=t.seed)
+        multiscale_downscales=m.side_output_downscales or None))
+    data.set_valid_preprocessor(get_preprocessor(cfg, ds_config, "test"))
     class_weights = None
     if "semantic" in m.tasks and d.class_weighting != "none":
         class_weights = torch.from_numpy(
-            dataset.semantic_compute_class_weights(
+            data.dataset_train.semantic_compute_class_weights(
                 weight_mode=d.class_weighting, c=d.class_weighting_c)).to(dev)
     model = build_train_model(m, ds_config, device=str(dev), seed=t.seed)
     optimizer = get_optimizer(model.parameters(), t)
-    step = make_train_step(model, cfg, optimizer, class_weights)
-    return model, optimizer, step, loader, get_lr_fn(t)
+    is_thing = torch.tensor(ds_config.classes_is_thing, device=dev)
+    use_orientations = torch.tensor(ds_config.classes_use_orientations,
+                                    device=dev)
+    return Run(cfg=cfg, device=dev, model=model, optimizer=optimizer,
+               class_weights=class_weights,
+               train_step=make_train_step(model, cfg, optimizer,
+                                          class_weights),
+               eval_step=make_eval_step(model, cfg, is_thing,
+                                        use_orientations=use_orientations),
+               data=data, lr_fn=get_lr_fn(t))
 
 
 def dropout_generator_for(seed: int, epoch: int, step: int,
@@ -166,28 +289,172 @@ def dropout_generator_for(seed: int, epoch: int, step: int,
     return g
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    cfg, device = parse_args(argv)
-    dev = resolve_device(device)
-    model, optimizer, train_step, loader, lr_fn = setup(cfg, dev)
-    for epoch in range(cfg.train.n_epochs):
-        t0 = time.time()
-        lr = lr_fn(epoch)
-        set_learning_rate(optimizer, lr)
-        sums, n = None, 0
-        for i, batch in enumerate(loader.batches(epoch)):
-            metrics = train_step(
-                extract_device_batch(batch, dev),
-                dropout_generator_for(cfg.train.seed, epoch, i, dev))
-            # summed on the device: no host sync per step
-            sums = metrics if sums is None else {
-                k: sums[k] + v for k, v in metrics.items()}
-            n += 1
-        logs = {"epoch": epoch, "lr": lr,
-                "time_train_s": round(time.time() - t0, 2)}
-        logs.update({f"train_{k}": float(v) / max(n, 1)
-                     for k, v in (sums or {}).items()})
+def _host(t: torch.Tensor) -> np.ndarray:
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def run_validation(run: Run, epoch: int,
+                   artifacts_dir: Optional[str] = None) -> Dict[str, float]:
+    """Every validation loader through the eval step and the task
+    helpers (`main.py:242-278`); returns the 'valid_'-prefixed logs and
+    saves each helper's artifacts as `<name>_epoch_<epoch>.npy` into
+    `artifacts_dir`, where given."""
+    helpers = get_task_helpers(run.cfg, get_dataset_config(
+        run.cfg.data.dataset))
+    for th in helpers:
+        th.initialize()
+    for loader in run.data.valid_loaders.values():
+        for batch in loader.batches(0):
+            preds = run.eval_step({
+                k: torch.from_numpy(batch[k]).to(run.device)
+                for k in EVAL_KEYS if k in batch})
+            preds = {k: _host(preds[k]) for k in PREDICTION_KEYS
+                     if k in preds}
+            for th in helpers:
+                th.validation_step(batch, preds)
+    logs: Dict[str, float] = {}
+    for th in helpers:
+        artifacts, th_logs = th.validation_epoch_end()
+        logs.update({f"valid_{k}": v for k, v in th_logs.items()})
+        if artifacts_dir is not None:
+            for name, arr in artifacts.items():
+                np.save(os.path.join(artifacts_dir,
+                                     f"{name}_epoch_{epoch}.npy"), arr)
+    return logs
+
+
+def sanity_check(run: Run) -> float:
+    """One train step on a copy of the model and the optimizer (the
+    first batch of epoch 0); returns its total loss. The run's own model
+    and optimizer are left as they were."""
+    model = copy.deepcopy(run.model)
+    optimizer = get_optimizer(model.parameters(), run.cfg.train)
+    optimizer.load_state_dict(copy.deepcopy(run.optimizer.state_dict()))
+    step = make_train_step(model, run.cfg, optimizer, run.class_weights)
+    batch = next(iter(run.data.train_loader.batches(0)))
+    g = torch.Generator(device=run.device)
+    g.manual_seed(run.cfg.train.seed + 1)
+    metrics = step(extract_device_batch(batch, run.device), g)
+    return float(metrics["total_loss"])
+
+
+def make_run_dir(cfg: EMSANetConfig, argv: Sequence[str]) -> str:
+    """`<results_basepath>/<dataset>/run_<timestamp>/` with its
+    `checkpoints/` and `artifacts/`, `args.json` and `argsv.txt`."""
+    dataset = cfg.data.dataset.split(":")[0].split("[")[0]
+    ts = datetime.datetime.now().strftime("%Y_%m_%d-%H_%M_%S-%f")
+    run_dir = os.path.join(cfg.train.results_basepath, dataset, f"run_{ts}")
+    for sub in ("checkpoints", "artifacts"):
+        os.makedirs(os.path.join(run_dir, sub), exist_ok=True)
+    fields = dataclasses.asdict(cfg)
+    fields.pop("_validated", None)
+    with open(os.path.join(run_dir, "args.json"), "w") as fh:
+        json.dump(fields, fh, indent=2)
+    with open(os.path.join(run_dir, "argsv.txt"), "w") as fh:
+        fh.write(" ".join(argv))
+    return run_dir
+
+
+def _epoch_logs(epoch: int, lr: float, seconds: float,
+                sums: Optional[Dict[str, torch.Tensor]], n: int
+                ) -> Dict[str, Any]:
+    logs: Dict[str, Any] = {"epoch": epoch, "lr": lr,
+                            "time_train_s": round(seconds, 2)}
+    # sorted, as the JAX package's loss dict (a pytree) comes out
+    logs.update({f"train_{k}": float(sums[k]) / max(n, 1)
+                 for k in sorted(sums or {})})
+    return logs
+
+
+def train(run: Run, run_dir: str) -> Optional[Dict[str, Any]]:
+    """`main.py`'s loop from the sanity check on; returns the last
+    epoch's logs (those of the validation with `validation_only`)."""
+    cfg, t = run.cfg, run.cfg.train
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+    artifacts_dir = os.path.join(run_dir, "artifacts")
+    next_epoch = 0
+    if t.weights_filepath:
+        load_checkpoint(t.weights_filepath, run.model)
+    if t.resume_ckpt_filepath:
+        last_epoch, _ = load_checkpoint(t.resume_ckpt_filepath, run.model,
+                                        run.optimizer)
+        next_epoch = last_epoch + 1
+    if not t.skip_sanity_check:
+        print(f"[emsanet-torch] sanity train loss: {sanity_check(run):.4f}",
+              flush=True)
+    csv_logger = CSVLogger(os.path.join(run_dir, "metrics.csv"))
+    if t.validation_only:
+        logs = run_validation(run, next_epoch, artifacts_dir)
         print(json.dumps(logs), flush=True)
+        csv_logger.log({"epoch": next_epoch, **logs})
+        return logs
+
+    checkpoint_helper = CheckpointHelper(tuple(t.checkpointing_metrics))
+    n_epochs = t.n_epochs
+    epoch, logs = next_epoch, None
+    try:
+        for epoch in range(next_epoch, n_epochs):
+            t0 = time.time()
+            lr = run.lr_fn(epoch)
+            set_learning_rate(run.optimizer, lr)
+            sums, n = None, 0
+            for i, batch in enumerate(run.data.train_loader.batches(epoch)):
+                metrics = run.train_step(
+                    extract_device_batch(batch, run.device),
+                    dropout_generator_for(t.seed, epoch, i, run.device))
+                # summed on the device: no host sync per step
+                sums = metrics if sums is None else {
+                    k: sums[k] + v for k, v in metrics.items()}
+                n += 1
+            logs = _epoch_logs(epoch, lr, time.time() - t0, sums, n)
+            if (epoch >= t.validation_skip * n_epochs
+                    or (epoch + 1) % t.validation_force_interval == 0
+                    or epoch == n_epochs - 1):
+                t1 = time.time()
+                logs.update(run_validation(run, epoch, artifacts_dir))
+                logs["time_valid_s"] = round(time.time() - t1, 2)
+                improved = checkpoint_helper.check_for_checkpoint(
+                    {k.replace("valid_", ""): v for k, v in logs.items()
+                     if isinstance(v, (int, float))})
+                if epoch >= t.checkpointing_skip * n_epochs:
+                    for metric in improved:
+                        suffix = ("best" if t.checkpointing_best_only
+                                  else f"epoch_{epoch:04d}")
+                        save_checkpoint(
+                            os.path.join(ckpt_dir,
+                                         f"ckpt_{metric}_{suffix}.pt"),
+                            run.model, run.optimizer, epoch, logs)
+            if ((epoch + 1) % t.resume_ckpt_interval == 0
+                    or epoch == n_epochs - 1):
+                save_checkpoint(os.path.join(ckpt_dir, "ckpt_resume.pt"),
+                                run.model, run.optimizer, epoch, logs)
+            csv_logger.log(logs)
+            print(json.dumps(logs), flush=True)
+    except KeyboardInterrupt:
+        raise
+    except Exception:
+        try:
+            save_checkpoint(os.path.join(
+                ckpt_dir, f"ckpt_error__epoch_{epoch:04d}.pt"),
+                run.model, run.optimizer, epoch, {})
+        except Exception:  # the traceback below is what matters
+            pass
+        with open(os.path.join(run_dir, "error.log"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+    finally:
+        csv_logger.write()
+    with open(os.path.join(run_dir, "finished"), "w") as fh:
+        fh.write("done\n")
+    return logs
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    cfg, device, used = parse_args(argv)
+    run = setup(cfg, device)
+    run_dir = make_run_dir(cfg, used)
+    print(f"[emsanet-torch] run dir: {run_dir}", flush=True)
+    train(run, run_dir)
     return 0
 
 

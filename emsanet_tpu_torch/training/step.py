@@ -1,5 +1,6 @@
-"""The train step: multi-task losses, weighted total, backward, optimizer
-step (counterpart: `emsanet_tpu/training/step.py`).
+"""The train step (multi-task losses, weighted total, backward,
+optimizer step) and the eval step (forward in eval mode and
+postprocessing) (counterpart: `emsanet_tpu/training/step.py`).
 
 Side outputs are supervised against the `_down_{s}` target sub-batches;
 each task's total is its full-resolution loss plus the sum of its side
@@ -162,3 +163,35 @@ def make_train_step(
         return metrics
 
     return train_step
+
+
+def make_eval_step(
+    model: torch.nn.Module, cfg, is_thing: torch.Tensor,
+    use_orientations: Optional[torch.Tensor] = None,
+) -> Callable[[Dict[str, Any]], Dict[str, torch.Tensor]]:
+    """`eval_step(batch)`: the forward in eval mode and the whole
+    postprocessing, under `torch.inference_mode()` (counterpart:
+    `emsanet_tpu/training/step.py::make_eval_step`). `batch` holds
+    tensors on the model's device: 'rgb', 'depth' and, where present,
+    'instance_foreground' (the ground-truth foreground, which gives the
+    'instance_segmentation_gt_foreground' map). Returns the postprocessed
+    predictions under the reference's keys; the model's train or eval
+    mode is restored afterwards. The heads follow
+    `cfg.model.head_decode_fusion`. cfg: EMSANetConfig."""
+    from emsanet_tpu_torch.postprocessing import postprocess
+
+    def eval_step(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode():
+                outputs = model({"rgb": batch["rgb"],
+                                 "depth": batch["depth"]})
+                return postprocess(
+                    outputs, is_thing, cfg.model,
+                    gt_foreground=batch.get("instance_foreground"),
+                    use_orientations=use_orientations)
+        finally:
+            model.train(was_training)
+
+    return eval_step

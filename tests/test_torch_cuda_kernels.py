@@ -310,6 +310,57 @@ def test_cuda_grouping_and_segments_match_plain():
                        segment_kernels.segment_lookup_plain(args[0], tables))
 
 
+def _cuda_lookup_inputs(name):
+    """A LOOKUP_CASES entry on the card; misaligned keys are a
+    contiguous view 4 bytes into a larger buffer."""
+    keys, tables, misaligned = torch_kernel_cases.lookup_case(name)
+    n, p = keys.shape
+    if misaligned:
+        buf = torch.zeros(n * p + 1, dtype=torch.int32, device="cuda")
+        buf[1:] = _t(keys).reshape(-1).cuda()
+        inst = buf[1:].view(n, p)
+        assert inst.data_ptr() % 16 == 4
+    else:
+        inst = _t(keys).cuda()
+    return inst, _t(tables).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(torch_kernel_cases.LOOKUP_CASES))
+def test_cuda_segment_lookup_cases_match_plain(case):
+    """Bit for bit against the plain gather: keys below 0 and from S up
+    look up 0; D = 1, 2, 3; P % 4 != 0 and misaligned keys (the scalar
+    path); a 60 kB table (dynamic shared memory above 48 kB). One launch
+    a call."""
+    _need_cuda()
+    inst, tables = _cuda_lookup_inputs(case)
+    before = segment_kernels.segment_lookup.launches
+    got = segment_kernels.segment_lookup(inst, tables)
+    assert segment_kernels.segment_lookup.launches == before + 1
+    want = segment_kernels.segment_lookup_plain(inst, tables)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not bool(got[:, :, :4].view(torch.int32).any())
+
+
+@pytest.mark.cuda
+def test_cuda_segment_lookup_refuses_bad_inputs():
+    _need_cuda()
+    inst = torch.zeros((2, 64), dtype=torch.int32, device="cuda")
+    for tables in (torch.zeros((2, 2, 65), device="cpu"),
+                   torch.zeros((2, 2, 65), dtype=torch.float64,
+                               device="cuda"),
+                   torch.zeros((3, 2, 65), device="cuda"),
+                   torch.zeros((2, 0, 65), device="cuda"),
+                   torch.zeros((2, 2, 65), device="cuda")[:, :, ::2]):
+        with pytest.raises(ValueError):
+            segment_kernels.segment_lookup(inst, tables)
+    with pytest.raises(ValueError):
+        segment_kernels.segment_lookup(inst.long(),
+                                       torch.zeros((2, 2, 65), device="cuda"))
+
+
 def _grouping_check(voted, centers, valid):
     """The kernel equals the plain version bit for bit (idx and dist), and
     a second call gives the same bits; one launch per call."""

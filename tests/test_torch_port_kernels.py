@@ -189,6 +189,25 @@ def test_lookup_plain_matches_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# the JAX kernel's one-hot dot holds an (S, 4096) matrix a step: the
+# cases of small tables and P, in interpret mode
+LOOKUP_JAX_CASES = ("d1", "d3", "p-ragged d1", "p-ragged d2", "p-ragged d3",
+                    "misaligned")
+
+
+@pytest.mark.parametrize("case", LOOKUP_JAX_CASES)
+def test_lookup_plain_matches_jax_cases(case):
+    """Keys below 0 and from S up look up 0 in both; D = 1, 2, 3; P % 4
+    != 0. Bit for bit."""
+    keys, tables, _ = torch_kernel_cases.lookup_case(case)
+    want = jax_segment.segment_lookup(jnp.asarray(keys), jnp.asarray(tables),
+                                      interpret=True)
+    got = segment_kernels.segment_lookup(_t(keys), _t(tables))
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+    assert not got[:, :, :4].numpy().any()
+
+
 def test_cpu_tensors_take_the_plain_version():
     before = (stem.fused_stems.launches, nbt1d_chain.nbt1d_chain.launches,
               grouping.group_pixels_argmin.launches,

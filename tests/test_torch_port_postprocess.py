@@ -151,3 +151,48 @@ def test_nms_keep_mask_matches_jax(k):
     want = jax_pp._nms_keep_mask(jnp.asarray(hm), k)
     got = pp._nms_keep_mask(torch.from_numpy(hm), k)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("inst_dtype", [np.int32, np.int64])
+def test_panoptic_merge_shares_one_int32_instance_map(monkeypatch,
+                                                      inst_dtype):
+    """The merge's histogram and lookup get the same int32 instance map,
+    and its maps equal the JAX package's `panoptic_merge_flat` (keys past
+    K and below 0 included)."""
+    rng = np.random.RandomState(7)
+    n, p, k = 2, 3000, 64
+    is_thing = np.asarray(
+        get_dataset_config("synthetic").classes_is_thing, bool)
+    sem = rng.randint(0, C + 1, (n, p)).astype(np.int32)
+    score = rng.rand(n, p).astype(np.float32)
+    inst = rng.randint(-2, k + 3, (n, p)).astype(np.int32)
+    cscore = rng.rand(n, k).astype(np.float32)
+    cvalid = rng.rand(n, k) > 0.3
+    orient = rng.randn(n, p, 2).astype(np.float32)
+    seen = []
+    for name in ("segment_hist_and_sums", "segment_lookup"):
+        orig = getattr(pp.segment_ops, name)
+
+        def spy(keys, *a, __orig=orig, **kw):
+            seen.append(keys)
+            return __orig(keys, *a, **kw)
+
+        monkeypatch.setattr(pp.segment_ops, name, spy)
+    got = pp.panoptic_merge_flat(
+        torch.from_numpy(sem), torch.from_numpy(score),
+        torch.from_numpy(inst.astype(inst_dtype)), torch.from_numpy(cscore),
+        torch.from_numpy(cvalid), torch.from_numpy(is_thing), C + 1,
+        orientation_vectors=torch.from_numpy(orient))
+    assert len(seen) == 2 and seen[0] is seen[1]
+    assert seen[0].dtype == torch.int32 and seen[0].is_contiguous()
+    want = jax.jit(lambda *a: jax_pp.panoptic_merge_flat(
+        *a, n_classes=C + 1, orientation_vectors=jnp.asarray(orient)))(
+        jnp.asarray(sem), jnp.asarray(score), jnp.asarray(inst),
+        jnp.asarray(cscore), jnp.asarray(cvalid), jnp.asarray(is_thing))
+    assert sorted(want) == sorted(got)
+    for key in want:
+        w, g = np.asarray(want[key]), got[key].numpy()
+        if key == "instance_orientations":
+            np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-5)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=key)

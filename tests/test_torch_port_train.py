@@ -516,13 +516,14 @@ def test_class_weights_match_jax(mode):
 # the train entry
 
 
-def test_train_entry_runs_on_cpu(capsys):
+def test_train_entry_runs_on_cpu(capsys, tmp_path):
     argv = ["--device", "cpu", "--dataset", "synthetic", "--n-epochs", "1",
             "--batch-size", "2", "--synthetic-n-samples", "2",
             "--input-height", "64", "--input-width", "64",
             "--rgb-encoder-backbone", "resnet18",
             "--depth-encoder-backbone", "resnet18", "--tasks", *TASKS,
-            "--enable-panoptic", "--fused-training", "--n-workers", "1"]
+            "--enable-panoptic", "--fused-training", "--n-workers", "1",
+            "--results-basepath", str(tmp_path)]
     assert train_entry.main(argv) == 0
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert '"train_total_loss"' in line and '"epoch": 0' in line

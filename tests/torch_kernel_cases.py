@@ -1,5 +1,6 @@
-"""Inputs of the pixel -> center grouping (`group_pixels_argmin`) and of
-the plane interleave (`interleave_planes`): the grouping's edge cases
+"""Inputs of the pixel -> center grouping (`group_pixels_argmin`), of
+the plane interleave (`interleave_planes`) and of the segment lookup
+(`segment_lookup`, `LOOKUP_CASES`): the grouping's edge cases
 for its CPU tests (`test_torch_port_kernels.py`) and card tests
 (`test_torch_cuda_kernels.py`), and the frame-size cases of both kernels
 for the card tests and `emsanet_tpu_torch/kernel_bench.py` (not
@@ -106,3 +107,31 @@ def frame_planes(seed, shape):
         named[key] = rng.randn(*shape).astype(np.float32)
     named["foreground"] = rng.rand(*shape) > 0.5
     return named
+
+
+# (N, P, D, S, misaligned): the segment lookup's cases; keys run from
+# below 0 to past S, with int32's extremes in the first few pixels.
+# misaligned: the keys start 4 bytes past a 16-byte boundary (the
+# kernel's scalar path, as P % 4 != 0 takes it)
+LOOKUP_CASES = {
+    "frame b1": (1, H * W, 2, K + 1, False),
+    "frame b8": (8, H * W, 2, K + 1, False),
+    "d1": (2, 4096, 1, K + 1, False),
+    "d3": (2, 4096, 3, K + 1, False),
+    "p-ragged d1": (3, 4097, 1, K + 1, False),
+    "p-ragged d2": (3, 4097, 2, K + 1, False),
+    "p-ragged d3": (2, 1023, 3, K + 1, False),
+    "misaligned": (2, 4096, 2, K + 1, True),
+    "large table": (2, 8192, 3, 5000, False),  # 60 kB: above 48 kB
+}
+
+
+def lookup_case(name, seed=0):
+    """(keys (N, P) int32, tables (N, D, S) f32, misaligned) of a
+    LOOKUP_CASES entry; numpy arrays."""
+    n, p, d, s, misaligned = LOOKUP_CASES[name]
+    rng = np.random.RandomState(seed)
+    keys = rng.randint(-3, s + 3, (n, p)).astype(np.int32)
+    keys[:, :4] = (-2**31, 2**31 - 1, -1, s)
+    tables = rng.randn(n, d, s).astype(np.float32)
+    return keys, tables, misaligned
