@@ -139,15 +139,12 @@ class DataConfig:
 
     dataset: str = "nyuv2"
     split: str = "train"
-    validation_split: str = "valid"  # nyuv2 and sunrgbd: 'test'
     raw_depth: bool = False
     aug_scale_min: float = 1.0
     aug_scale_max: float = 1.4
     disable_color_flip_aug: bool = False
     batch_size: int = 8
     validation_batch_size: Optional[int] = None  # 3 * batch_size
-    validation_input_height: Optional[int] = None  # the input size
-    validation_input_width: Optional[int] = None
     n_workers: int = 8
     class_weighting: str = "median-frequency"
     class_weighting_c: float = 1.02
@@ -217,14 +214,6 @@ class EMSANetConfig:
             d.raw_depth = True
         if t.mixed_precision and m.compute_dtype == "float32":
             m.compute_dtype = "bfloat16"  # parameters stay float32
-        main_dataset = d.dataset.split(":")[0].split("[")[0]
-        if main_dataset in ("nyuv2", "sunrgbd") and (
-                d.validation_split == "valid"):
-            d.validation_split = "test"
-        if d.validation_input_height is None:
-            d.validation_input_height = m.input_height
-        if d.validation_input_width is None:
-            d.validation_input_width = m.input_width
         if d.validation_batch_size is None:
             d.validation_batch_size = 3 * d.batch_size
         return self

@@ -1,5 +1,6 @@
 """Loaders of the train and validation data (counterpart:
-`emsanet_tpu/data.py`: `RandomSamplerSubset`, the `DataLoader` in its
+`emsanet_tpu/data.py`: the deterministic `RandomSamplerSubset`, the
+`DataLoader` in its
 'thread' worker mode, `DataHelper`, `TrainSubsetView` and
 `get_datahelper`).
 
@@ -15,9 +16,8 @@ consumer works on earlier ones (a single batch too: its samples load in
 parallel).
 
 `--overfit-n-batches` trains on a fixed subset of that many batches
-(`RandomSamplerSubset`, deterministic), and `--validation-on-train`
-validates on that subset through the test preprocessor
-(`TrainSubsetView`).
+(`overfit_indices`), and `--validation-on-train` validates on that
+subset through the test preprocessor (`TrainSubsetView`).
 """
 
 from __future__ import annotations
@@ -33,34 +33,17 @@ from emsanet_tpu_torch.datasets.synthetic import get_dataset
 from emsanet_tpu_torch.preprocessing.collate import batch_collate
 
 
-class RandomSamplerSubset:
-    """A random subset of `subset` (a fraction in (0, 1]) of the samples,
-    the same every epoch: the reference's deterministic mode, the one
-    `--overfit-n-batches` uses (its mode that draws anew each epoch has
-    no caller here)."""
-
-    def __init__(self, n_samples: int, subset: float, seed: int = 0):
-        self.n_samples = n_samples
-        self.subset = float(subset)
-        self.seed = seed
-
-    @property
-    def n_draw(self) -> int:
-        return max(int(round(self.n_samples * self.subset)), 1)
-
-    def indices(self, epoch: int) -> np.ndarray:
-        rng = np.random.default_rng(self.seed)
-        out = rng.permutation(self.n_samples)[:self.n_draw]
-        rng.shuffle(out)
-        return out
-
-
-def overfit_sampler(n_samples: int, overfit_n_batches: int,
-                    batch_size: int, seed: int) -> RandomSamplerSubset:
-    """The fixed subset of `overfit_n_batches` batches."""
-    return RandomSamplerSubset(
-        n_samples, min(overfit_n_batches * batch_size / max(n_samples, 1),
-                       1.0), seed=seed)
+def overfit_indices(n_samples: int, n_batches: int, batch_size: int,
+                    seed: int) -> np.ndarray:
+    """The fixed subset of `n_batches` batches that `--overfit-n-batches`
+    trains on, the same every epoch (the reference's
+    `RandomSamplerSubset` in its deterministic mode)."""
+    n_draw = max(int(round(n_samples * min(
+        n_batches * batch_size / max(n_samples, 1), 1.0))), 1)
+    rng = np.random.default_rng(seed)
+    out = rng.permutation(n_samples)[:n_draw]
+    rng.shuffle(out)
+    return out
 
 
 def _load_one(dataset, idx: int, rng_seed: int) -> dict:
@@ -78,10 +61,9 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, n_workers: int = 4, seed: int = 0,
-                 prefetch: int = 2,
-                 sampler: Optional[RandomSamplerSubset] = None):
+                 prefetch: int = 2, indices: Optional[np.ndarray] = None):
         self.dataset = dataset
-        self.sampler = sampler
+        self.indices = indices  # a fixed subset, drawn in this order
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -94,14 +76,14 @@ class DataLoader:
         self.prefetch = prefetch
 
     def __len__(self) -> int:
-        n = (self.sampler.n_draw if self.sampler is not None
+        n = (len(self.indices) if self.indices is not None
              else len(self.dataset))
         return n // self.batch_size if self.drop_last else -(
             -n // self.batch_size)
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
-        if self.sampler is not None:
-            return self.sampler.indices(epoch)
+        if self.indices is not None:
+            return self.indices
         if self.shuffle:
             return np.random.default_rng(self.seed + epoch).permutation(
                 len(self.dataset))
@@ -154,16 +136,12 @@ class DataHelper:
 
     def __init__(self, dataset_train, dataset_valid, batch_size: int,
                  valid_batch_size: int, n_workers: int = 4,
-                 overfit_n_batches: int = -1, seed: int = 0):
+                 train_indices: Optional[np.ndarray] = None, seed: int = 0):
         self.dataset_train = dataset_train
         self.dataset_valid = dataset_valid
-        sampler = None
-        if overfit_n_batches > 0:
-            sampler = overfit_sampler(len(dataset_train), overfit_n_batches,
-                                      batch_size, seed)
         self.train_loader = DataLoader(
             dataset_train, batch_size, shuffle=True, drop_last=True,
-            n_workers=n_workers, seed=seed, sampler=sampler)
+            n_workers=n_workers, seed=seed, indices=train_indices)
         cameras = dataset_valid.cameras
         if len(cameras) > 1:
             raise NotPortedError("not ported yet: validation per camera of "
@@ -214,17 +192,19 @@ def get_datahelper(cfg) -> DataHelper:
     with `validation_on_train` alone, else the validation split."""
     d, m, t = cfg.data, cfg.model, cfg.train
     dataset_train = get_dataset(d, m, d.split)
+    train_indices = None
+    if t.overfit_n_batches > 0:
+        train_indices = overfit_indices(len(dataset_train),
+                                        t.overfit_n_batches, d.batch_size,
+                                        t.seed)
     if t.validation_on_train:
         dataset_valid = get_dataset(d, m, d.split)
-        if t.overfit_n_batches > 0:
-            sampler = overfit_sampler(len(dataset_train),
-                                      t.overfit_n_batches, d.batch_size,
-                                      t.seed)
+        if train_indices is not None:
             dataset_valid = TrainSubsetView(dataset_valid,
-                                            np.sort(sampler.indices(0)))
+                                            np.sort(train_indices))
     else:
-        dataset_valid = get_dataset(d, m, d.validation_split)
+        dataset_valid = get_dataset(d, m, "valid")
     return DataHelper(dataset_train, dataset_valid, d.batch_size,
                       d.validation_batch_size or d.batch_size,
-                      n_workers=d.n_workers,
-                      overfit_n_batches=t.overfit_n_batches, seed=t.seed)
+                      n_workers=d.n_workers, train_indices=train_indices,
+                      seed=t.seed)

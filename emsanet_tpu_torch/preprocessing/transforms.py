@@ -505,8 +505,7 @@ def get_preprocessor(cfg, dataset_config, phase: str,
                      keep_raw_inputs: bool = False) -> Compose:
     """The transform chain of a phase ('train' or 'test'). cfg:
     EMSANetConfig; dataset_config: `datasets.metadata.DatasetConfig`.
-    The test phase resizes to the validation input size (default: the
-    model's input size)."""
+    The test phase resizes to the model's input size."""
     if phase not in ("train", "test"):
         raise ValueError(f"phase must be 'train' or 'test', got '{phase}'")
     m, d = cfg.model, cfg.data
@@ -530,8 +529,7 @@ def get_preprocessor(cfg, dataset_config, phase: str,
         transforms.append(FullResCloner(
             ("rgb", "depth", "semantic", "normal", "instance", "panoptic"),
             ignore_missing_keys=True))
-        transforms.append(Resize(d.validation_input_height or m.input_height,
-                                 d.validation_input_width or m.input_width))
+        transforms.append(Resize(m.input_height, m.input_width))
 
     if multiscale_downscales:
         keys = ["identifier"]

@@ -122,8 +122,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-epochs", type=int, default=500)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--validation-batch-size", type=int, default=None)
-    p.add_argument("--validation-input-height", type=int, default=None)
-    p.add_argument("--validation-input-width", type=int, default=None)
     p.add_argument("--optimizer", default="sgd",
                    choices=("sgd", "adam", "adamw", "radam"))
     p.add_argument("--learning-rate", type=float, default=0.01)
@@ -197,8 +195,6 @@ def parse_args(argv: Optional[Sequence[str]] = None
     data = DataConfig(
         dataset=a.dataset, batch_size=a.batch_size, n_workers=a.n_workers,
         validation_batch_size=a.validation_batch_size,
-        validation_input_height=a.validation_input_height,
-        validation_input_width=a.validation_input_width,
         aug_scale_min=a.aug_scale_min, aug_scale_max=a.aug_scale_max,
         disable_color_flip_aug=a.disable_color_flip_aug,
         class_weighting=a.class_weighting or a.semantic_class_weighting,

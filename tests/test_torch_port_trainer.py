@@ -8,6 +8,7 @@ scene, panoptic), f32, synthetic data with run 4's flags
 so. Everything that must be unchanged is compared bit for bit.
 """
 
+import copy
 import json
 import os
 
@@ -128,6 +129,40 @@ def test_validation_sees_stepped_weights(megakernel):
     logs2, again = _validate(cached)
     assert logs2 == logs1 and _same_outputs(again, after)
     assert "instance_orientation_planes" in after[0]
+
+
+def test_mixed_precision_eval_equals_bf16_weights():
+    """The bf16 eval of a --mixed-precision model's f32 parameters (the
+    upsamplings below the polyphase gate cast their weight at use) gives
+    the outputs of the same weights cast to bf16 beforehand, bit for bit.
+    128x160, so both heads defer (decode-planes) and the small maps stay
+    below the gate. The initial weights: their BatchNorm statistics (0
+    and 1) are exact in bf16, and an eval BatchNorm of f32 statistics
+    computes in f32 where one of bf16 statistics would not."""
+    from emsanet_tpu_torch.datasets.metadata import get_dataset_config
+    from emsanet_tpu_torch.training.step import make_eval_step
+
+    cfg = _cfg(128, 160, head="decode-planes", mixed_precision=True)
+    assert cfg.model.compute_dtype == "bfloat16"
+    run = trainer.setup(cfg, "cpu")
+    assert all(p.dtype == torch.float32 for p in run.model.parameters())
+    (loader,) = run.data.valid_loaders.values()
+    batch = next(iter(loader.batches(0)))
+    inputs = {k: torch.from_numpy(batch[k]) for k in trainer.EVAL_KEYS
+              if k in batch}
+    got = run.eval_step(inputs)
+    ds = get_dataset_config("synthetic")
+    want = make_eval_step(
+        copy.deepcopy(run.model).to(torch.bfloat16), cfg,
+        torch.tensor(ds.classes_is_thing),
+        use_orientations=torch.tensor(ds.classes_use_orientations))(inputs)
+    assert "instance_orientation_planes" in got
+    assert got["semantic_segmentation_idx"].shape == (2, 128, 160)
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        if v.is_floating_point():
+            assert torch.isfinite(v).all(), k
+        assert v.dtype == want[k].dtype and torch.equal(v, want[k]), k
 
 
 def test_checkpoint_round_trip_is_bit_exact(tmp_path):
@@ -283,19 +318,3 @@ def test_fused_inference_off_is_refused():
     cfg.model.fused_inference = False
     with pytest.raises(NotPortedError):
         pc.validate_for_port(cfg.model, train=True)
-
-
-def test_run_report_on_run4():
-    """run_report on run 4's own metrics.csv: its losses, 800 epochs,
-    four validations, and the bars met."""
-    from emsanet_tpu_torch import run_report
-
-    rows = run_report.read_rows(os.path.join(RUN4, "metrics.csv"))
-    rep = run_report.report(rows, rows, (0, 799))
-    assert rep["train_total_loss"][799]["run"] == pytest.approx(0.62235361)
-    assert rep["epoch_train_s"]["epochs"] == 800
-    assert sorted(rep["valid_s"], key=int) == ["199", "399", "599", "799"]
-    assert all(rep["bars_met"].values())
-    rows[-1]["valid_panoptic_all_with_gt_deeplab_pq"] = "0.7"
-    assert not run_report.report(rows, rows, (0,))["bars_met"][
-        "valid_panoptic_all_with_gt_deeplab_pq"]

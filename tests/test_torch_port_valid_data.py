@@ -4,8 +4,8 @@ CPU, bit for bit.
 
 The JAX side runs its numpy paths (its optional native library may
 differ in the last bit; the port copies the numpy). Sizes: 48x64
-synthetic samples, validated at the input size and at 32x48 (a resize
-with full-resolution copies kept).
+synthetic samples, validated at the input size; the resize on its own
+from 48x64 to 32x48.
 """
 
 import numpy as np
@@ -36,15 +36,14 @@ def no_native(monkeypatch):
     monkeypatch.setattr(jax_native, "_TRIED", True)
 
 
-def _cfgs(tasks=TASKS, n=6, batch_size=2, valid_hw=(None, None), **train):
+def _cfgs(tasks=TASKS, n=6, batch_size=2, **train):
     model = dict(tasks=tasks, enable_panoptic="instance" in tasks,
                  input_height=H, input_width=W,
                  rgb_encoder_backbone="resnet18",
                  depth_encoder_backbone="resnet18")
     d = dict(dataset="synthetic", batch_size=batch_size,
              validation_batch_size=batch_size, synthetic_n_samples=n,
-             validation_input_height=valid_hw[0],
-             validation_input_width=valid_hw[1], n_workers=2)
+             n_workers=2)
     port = pc.validate_train_for_port(pc.EMSANetConfig(
         model=pc.ModelConfig(**model), data=pc.DataConfig(**d),
         train=pc.TrainConfig(**train)))
@@ -71,34 +70,53 @@ def _same(got, want, path=""):
 
 
 @pytest.mark.parametrize("tasks", [TASKS, ("semantic", "scene")])
-@pytest.mark.parametrize("valid_hw", [(None, None), (32, 48)])
-def test_test_phase_samples_match_jax(tasks, valid_hw):
-    port, ref = _cfgs(tasks, valid_hw=valid_hw)
+@pytest.mark.parametrize("keep_raw_inputs", [True, False])
+def test_test_phase_samples_match_jax(tasks, keep_raw_inputs):
+    port, ref = _cfgs(tasks)
     ds = get_dataset(port.data, port.model, "valid")
     ds.preprocessor = get_preprocessor(port, get_dataset_config("synthetic"),
-                                       "test", keep_raw_inputs=True)
+                                       "test", keep_raw_inputs=keep_raw_inputs)
     jds = jax_get_dataset(ref.data, ref.model, "valid")
     jds.preprocessor = jax_preprocessor(ref, jax_ds_config(ref.data), "test",
-                                        keep_raw_inputs=True)
+                                        keep_raw_inputs=keep_raw_inputs)
     for i in range(3):
         got, want = ds[i], jds[i]
         _same(got, want)
-        assert "_no_preprocessing" in got
+        assert ("_no_preprocessing" in got) == keep_raw_inputs
         assert ("panoptic_fullres" in got) == ("instance" in tasks)
-        assert got["rgb"].shape[:2] == (valid_hw[0] or H, valid_hw[1] or W)
+        assert got["rgb"].shape[:2] == (H, W)
+
+
+def test_resize_matches_jax():
+    """The test phase's resize on its own, 48x64 to 32x48, after the
+    full-resolution copies: every key as the JAX package's, bit for bit."""
+    from emsanet_tpu.preprocessing import transforms as jax_transforms
+    from emsanet_tpu_torch.preprocessing import transforms
+
+    port, ref = _cfgs()
+    ds = get_dataset(port.data, port.model, "valid")
+    jds = jax_get_dataset(ref.data, ref.model, "valid")
+    keys = ("rgb", "depth", "semantic", "normal", "instance", "panoptic")
+    for i in range(2):
+        got = transforms.FullResCloner(keys)(ds.load_raw(i))
+        want = jax_transforms.FullResCloner(keys)(jds.load_raw(i))
+        got = transforms.Resize(32, 48)(got)
+        want = jax_transforms.Resize(32, 48)(want)
+        _same(got, want)
+        assert got["rgb"].shape[:2] == (32, 48)
+        assert got["rgb_fullres"].shape[:2] == (H, W)
 
 
 def test_overfit_subset_matches_jax():
     for n, batches, batch_size, seed in ((64, 1, 8, 0), (10, 2, 3, 5),
                                          (5, 4, 2, 1)):
-        got = data.overfit_sampler(n, batches, batch_size, seed)
+        got = data.overfit_indices(n, batches, batch_size, seed)
         want = jax_data.RandomSamplerSubset(
             n, subset=min(batches * batch_size / n, 1.0),
             deterministic=True, seed=seed)
-        assert got.n_draw == want.n_draw
+        assert len(got) == want.n_draw
         for epoch in (0, 3):
-            np.testing.assert_array_equal(got.indices(epoch),
-                                          want.indices(epoch))
+            np.testing.assert_array_equal(got, want.indices(epoch))
 
 
 @pytest.mark.parametrize("case", ["overfit, validation on train",
