@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. build: compile every kernel of `emsanet_tpu_torch/csrc` (one nvcc per
-     source, all at once); `ptxas` must give both instantiations (bf16,
+     source, all at once) and the loader's host library
+     (`csrc/host/emsanet_native.cpp`, g++); `ptxas` must give both instantiations (bf16,
      f32) of the head-loss forward and backward kernels, the decoder
      trunk kernel, the stem kernel, the semantic decode kernel and the
      instance head kernel, the two (D = 1, 2) of the segment histogram
@@ -126,6 +127,27 @@ Phases (any failure exits non-zero and prints no result):
      lookup, decode, instance head, interleave) must have launched; its
      metrics must be finite; its ms per batch is logged; a checkpoint
      saved and loaded on the card gives equal model and optimizer tensors.
+  9. dataset (prepared datasets on disk, `python -m
+     emsanet_tpu_torch.train --dataset-path`): a 640x480 dataset of the
+     port's synthetic samples written with the port's PNG writer (24
+     train samples; 4 test samples of each of two cameras, 480x640 and
+     530x730; cameras.json, meta.json) and its packed copy must read
+     back equal to the generator; the loader's host ms per b8 batch of
+     the flagship's train preprocessing for thread and process workers
+     on PNG and packed files (their batches equal bit for bit; a worker
+     process must hold no CUDA driver or context), and the PNG reader's
+     steps on one image, are logged. The flagship (bf16, b8,
+     fused_training) trains 2 epochs from the PNG files with process
+     workers, validating each epoch over both cameras ('auto' at
+     validation batch 8 -> decode-planes); then a validation at full
+     resolution (the second camera padded to 544x736) from the packed
+     files through `--validation-only --weights-filepath`. Launch
+     counters are set to 0 just before each and read just after: the
+     training run must launch kernels 1-7, 9 and 10, the full-resolution
+     validation 1-7; `finished`, finite losses and metrics. An R18 f32
+     b2 model with two small cameras (96x128, 106x146) after 4 card steps
+     is validated at full resolution on the card and the CPU: eval
+     outputs and metrics within phase 8's limits.
 
 Tolerances (error relative to the largest magnitude of the plain result
 unless stated): stem bf16 2e-2, f32 1e-4; NBt1D chain bf16 5e-2 (K
@@ -631,6 +653,7 @@ def run() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
+        from emsanet_tpu_torch import native as host_native
         from emsanet_tpu_torch.bench import (
             build_flagship,
             make_frame,
@@ -673,6 +696,10 @@ def run() -> int:
         for src, text in logs.items():
             f.write(f"== {src}\n{text}\n")
     log(f"[build] {len(_native.SOURCES)} kernel sources in "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    host_native.get_lib()  # the loader's host library, built with g++
+    log(f"[build] host library {host_native.library_path().name} in "
         f"{time.time() - t0:.1f} s")
     # a library built by an earlier run gives no ptxas report: those
     # sources are compiled again, to cubins in a temporary directory
@@ -962,6 +989,9 @@ def run() -> int:
     # -- 8. validation ------------------------------------------------------
     torch.cuda.empty_cache()
     validation_report = validation_phase(torch, modules)
+    # -- 9. prepared datasets on disk ---------------------------------------
+    torch.cuda.empty_cache()
+    dataset_report = dataset_phase(torch, modules)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": card, "frame_ms": frame_ms, "detail": detail,
                    "launches": launches, "errors": errors,
@@ -973,7 +1003,8 @@ def run() -> int:
                    "grouping_center_sets": grouping_sets,
                    "lookup_cases": lookup_report,
                    "train": train_report,
-                   "validation": validation_report}, f, indent=1)
+                   "validation": validation_report,
+                   "dataset": dataset_report}, f, indent=1)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))
@@ -1130,17 +1161,7 @@ def validation_phase(torch, modules):
         f"{json.dumps(outs)}")
     on_card = trainer.run_validation(card_run, 0)
     on_cpu = trainer.run_validation(cpu_run, 0)
-    diffs = {}
-    for key, want in on_cpu.items():
-        got = on_card[key]
-        if not (math.isfinite(got) and math.isfinite(want)):
-            raise AssertionError(f"[validation] {key}: not finite "
-                                 f"(card {got}, CPU {want})")
-        tol = VALIDATION_TOL["deg" if key.endswith("_deg") else "ratio"]
-        diffs[key] = abs(got - want)
-        if diffs[key] > tol:
-            raise AssertionError(f"[validation] {key}: card {got} against "
-                                 f"CPU {want}, beyond {tol}")
+    diffs = metrics_card_vs_cpu(on_card, on_cpu, "[validation]")
     log(f"[validation] R18 96x128 f32 b2, card vs CPU after "
         f"{2 * VALIDATION_SMALL_EPOCHS} card steps: "
         f"card {json.dumps(on_card)}; largest difference "
@@ -1218,17 +1239,35 @@ def validation_phase(torch, modules):
     return report
 
 
+def metrics_card_vs_cpu(on_card, on_cpu, where):
+    """Each validation metric of the card's run against the CPU's: both
+    finite and within VALIDATION_TOL; returns the differences."""
+    diffs = {}
+    for key, want in on_cpu.items():
+        got = on_card[key]
+        if not (math.isfinite(got) and math.isfinite(want)):
+            raise AssertionError(f"{where} {key}: not finite "
+                                 f"(card {got}, CPU {want})")
+        tol = VALIDATION_TOL["deg" if key.endswith("_deg") else "ratio"]
+        diffs[key] = abs(got - want)
+        if diffs[key] > tol:
+            raise AssertionError(f"{where} {key}: card {got} against "
+                                 f"CPU {want}, beyond {tol}")
+    return diffs
+
+
 def eval_outputs_card_vs_cpu(torch, trainer, card_run, cpu_run):
     """The eval step of the card's run and of the CPU's on each
-    validation batch: per output key, the share of elements that differ
-    (integer and bool elements that are not equal, float ones beyond
-    VALIDATION_OUT_TOL's atol + rtol * |CPU|, non-finite ones where the
-    other side differs) and the largest float error; raises where a
-    share is above VALIDATION_OUT_TOL['share']."""
+    validation batch of every camera's loader: per output key, the share
+    of elements that differ (integer and bool elements that are not
+    equal, float ones beyond VALIDATION_OUT_TOL's atol + rtol * |CPU|,
+    non-finite ones where the other side differs) and the largest float
+    error; raises where a share is above VALIDATION_OUT_TOL['share']."""
     tol = VALIDATION_OUT_TOL
     worst = {}
-    (loader,) = cpu_run.data.valid_loaders.values()
-    for batch in loader.batches(0):
+    batches = [b for loader in cpu_run.data.valid_loaders.values()
+               for b in loader.batches(0)]
+    for batch in batches:
         inputs = {k: torch.from_numpy(batch[k]) for k in trainer.EVAL_KEYS
                   if k in batch}
         want = cpu_run.eval_step(inputs)
@@ -1732,7 +1771,7 @@ def train_setup(torch, height, width, backbone, batch_size, dtype, device,
     from emsanet_tpu_torch import config as pc
     from emsanet_tpu_torch.data import DataLoader
     from emsanet_tpu_torch.datasets.metadata import get_dataset_config
-    from emsanet_tpu_torch.datasets.synthetic import get_dataset
+    from emsanet_tpu_torch.datasets.registry import get_dataset
     from emsanet_tpu_torch.models.emsanet import build_train_model
     from emsanet_tpu_torch.preprocessing.transforms import get_preprocessor
     from emsanet_tpu_torch.training.optim import get_optimizer
@@ -2164,6 +2203,391 @@ def train_phase(torch, card):
     report["kernels"] = detail
     del model, calls, cap
     return entries, report
+
+
+# phase 9: prepared datasets on disk. The flagship's dataset: 24 train
+# samples at 480x640 and, in 'test', 4 samples of each camera, the second
+# of SUNRGB-D's Kinect v2 size (530x730, padded to 544x736 at full
+# resolution); PNG rows filtered per row as libpng and PIL choose
+DATASET_TRAIN = 24
+DATASET_VALID_PER_CAMERA = 4
+DATASET_CAMERAS = (("kv1", 480, 640), ("kv2", 530, 730))
+SMALL_CAMERAS = (("kv1", 96, 128), ("kv2", 106, 146))  # card vs CPU
+PNG_FILTER = "adaptive"
+LOADER_WORKERS = 8
+# what a loader worker process has loaded: torch or JAX (multiprocessing
+# imports the launching script's main module in it), the CUDA driver, a
+# CUDA context; the last two must be absent
+WORKER_PROBE = ("(sorted(__import__('sys').modules.keys() & {'torch', "
+                "'jax'}), 'libcuda' in open('/proc/self/maps').read(), "
+                "'torch' in __import__('sys').modules and "
+                "__import__('torch').cuda.is_initialized())")
+
+
+def write_prepared(root, n_train, cameras, n_valid):
+    """A prepared dataset (the layout `datasets/disk.py` reads) of the
+    port's synthetic samples: `n_train` in 'train' at the first camera's
+    size, `n_valid` of each camera (name, h, w) in 'test' with ids
+    '<camera index><nnn>', cameras.json and meta.json. Returns the
+    samples by (split, id)."""
+    import numpy as np
+
+    from emsanet_tpu_torch.datasets.metadata import (
+        dataset_config_to_meta,
+        get_dataset_config,
+    )
+    from emsanet_tpu_torch.datasets.png import write_png
+    from emsanet_tpu_torch.datasets.synthetic import SyntheticDataset
+
+    written = {}
+
+    def put(split, sid, s):
+        base = os.path.join(root, split)
+        for kind, arr in (
+                ("rgb", s["rgb"]),
+                ("depth", np.clip(s["depth"], 0, 65535).astype(np.uint16)),
+                ("semantic_40", s["semantic"].astype(np.uint8)),
+                ("instance", s["instance"].astype(np.uint16))):
+            write_png(os.path.join(base, kind, f"{sid}.png"), arr,
+                      PNG_FILTER)
+        for kind, ext, text in (
+                ("orientations", "json", json.dumps(
+                    {str(k): v for k, v in s["orientations"].items()})),
+                ("scene_class", "txt", str(s["scene"]))):
+            os.makedirs(os.path.join(base, kind), exist_ok=True)
+            with open(os.path.join(base, kind, f"{sid}.{ext}"), "w") as fh:
+                fh.write(text)
+        written[split, sid] = s
+
+    _, h, w = cameras[0]
+    ds = SyntheticDataset("train", n_samples=n_train, height=h, width=w)
+    for i in range(n_train):
+        put("train", f"{i:04d}", ds.load_raw(i))
+    camera_of = {}
+    for c, (name, h, w) in enumerate(cameras):
+        ds = SyntheticDataset(f"test{c}", n_samples=n_valid, height=h,
+                              width=w)
+        for i in range(n_valid):
+            put("test", f"{c}{i:03d}", ds.load_raw(i))
+            camera_of[f"{c}{i:03d}"] = name
+    with open(os.path.join(root, "test", "cameras.json"), "w") as fh:
+        json.dump(camera_of, fh)
+    with open(os.path.join(root, "meta.json"), "w") as fh:
+        json.dump(dataset_config_to_meta(get_dataset_config("synthetic")),
+                  fh)
+    return written
+
+
+def check_raw_samples(root, written):
+    """Every sample read back from disk equals the generator's, bit for
+    bit (depth as the uint16 it was written as)."""
+    import numpy as np
+
+    from emsanet_tpu_torch.datasets.disk import PreparedDataset
+
+    keys = ("identifier", "rgb", "depth", "semantic", "instance",
+            "orientations", "scene")
+    n = 0
+    for split in ("train", "test"):
+        ds = PreparedDataset(root, "nyuv2", split, keys,
+                             scene_use_indoor_domestic_labels=True)
+        for i in range(len(ds)):
+            got = ds.load_raw(i)
+            want = written[split, got["identifier"][1]]
+            depth = np.clip(want["depth"], 0, 65535).astype(
+                np.uint16).astype(np.float32)
+            same = (np.array_equal(got["rgb"], want["rgb"])
+                    and np.array_equal(got["depth"], depth)
+                    and np.array_equal(got["semantic"], want["semantic"])
+                    and np.array_equal(got["instance"], want["instance"])
+                    and got["orientations"] == want["orientations"]
+                    and got["scene"] == want["scene"])
+            if not same:
+                raise AssertionError(f"[dataset] {split}/{i} read back from "
+                                     f"{root} differs from the generator's")
+            n += 1
+    return n
+
+
+def loader_times(torch, roots, cfg):
+    """Host ms per b8 train batch (an epoch of 3 batches of the flagship's
+    train preprocessing, LOADER_WORKERS workers; epochs 0 and 1) for
+    thread and process workers on the PNG and the packed files; every
+    combination's epoch-0 batches must equal the first's bit for bit.
+    Also: packed reads on one thread, the PNG reader's steps on one
+    640x480 RGB image, and what a worker process has loaded."""
+    import zlib
+
+    import numpy as np
+
+    from emsanet_tpu_torch import native
+    from emsanet_tpu_torch.data import DataLoader, _process_pool
+    from emsanet_tpu_torch.datasets import png
+    from emsanet_tpu_torch.datasets.registry import (
+        get_dataset,
+        get_dataset_config,
+    )
+    from emsanet_tpu_torch.preprocessing.transforms import get_preprocessor
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return sorted(a) == sorted(b) and all(same(a[k], b[k])
+                                                  for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        if isinstance(a, np.ndarray):
+            return a.dtype == b.dtype and np.array_equal(a, b)
+        return a == b
+
+    report, first = {}, None
+    pre = get_preprocessor(cfg, get_dataset_config(cfg.data), "train",
+                           multiscale_downscales=(
+                               cfg.model.side_output_downscales))
+    for files, root in roots.items():
+        cfg.data.dataset_path = root
+        ds = get_dataset(cfg.data, cfg.model, "train")
+        ds.preprocessor = pre
+        for mode, workers in (("thread", LOADER_WORKERS),
+                              ("process", LOADER_WORKERS),
+                              ("thread", 1)):
+            if workers == 1 and files != "packed":
+                continue
+            loader = DataLoader(ds, 8, shuffle=True, drop_last=True,
+                                n_workers=workers, seed=0, worker_mode=mode)
+            # epoch 0 starts a process loader's workers, epoch 1 reuses them
+            for epoch in (0, 1):
+                t0 = time.perf_counter()
+                batches = list(loader.batches(epoch))
+                ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+                key = f"{files}/{mode}/{workers}/epoch{epoch}"
+                report[key] = ms
+                if first is None:
+                    first = batches
+                elif epoch == 0 and not same(batches, first):
+                    raise AssertionError(f"[dataset] loader {key}: batches "
+                                         "differ from the first "
+                                         "combination's")
+                del batches
+            loader.close()
+    with _process_pool(ds, 1) as pool:
+        modules, driver, context = pool.submit(eval, WORKER_PROBE).result()
+    report["worker_process"] = {"torch_or_jax": modules,
+                                "libcuda_mapped": driver,
+                                "cuda_initialized": context}
+    if driver or context:
+        raise AssertionError(f"[dataset] a loader worker process holds "
+                             f"CUDA: {report['worker_process']}")
+    del first
+    # the PNG reader's steps on one RGB image of the train split
+    path = os.path.join(roots["png"], "train", "rgb", "0000.png")
+    raw = png.read_png(path)
+    raw = raw.reshape(raw.shape[0], -1)
+    steps = {}
+    for f in (0, 1, 2, 3, 4, PNG_FILTER):
+        stream = png.filter_rows(raw, 3, f)
+        steps[f"unfilter_{f}"] = _median_ms(
+            lambda: native.png_unfilter(stream, *raw.shape, 3))
+    with open(path, "rb") as fh:
+        blob = fh.read()
+    idat = zlib.compress(png.filter_rows(raw, 3, PNG_FILTER))
+    steps["inflate"] = _median_ms(lambda: zlib.decompress(idat))
+    steps["read_png"] = _median_ms(lambda: png.read_png(path))
+    report["png_rgb_ms"] = steps
+    report["png_rgb_bytes"] = len(blob)
+    return report
+
+
+def _median_ms(fn, runs=7):
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def dataset_phase(torch, modules):
+    """Phase 9: training and validation from prepared datasets on disk.
+    (a) A 640x480 dataset written with the port's PNG writer, read back
+    equal to the generator; its packed copy (`datasets/pack.py`); the
+    loader's ms per b8 batch for thread and process workers on PNG and
+    packed files, every combination's batches equal bit for bit.
+    (b) The flagship bf16 b8 `--fused-training` trains 2 epochs from the
+    PNG files with process workers, validating each epoch over both
+    cameras (decode-planes at validation batch 8); then a validation at
+    full resolution (544x736 for the second camera) through
+    `--validation-only --weights-filepath`. Each with the launch counters
+    set to 0 just before and read just after: the training run must
+    launch kernels 1-7, 9 and 10, the full-resolution validation 1-7;
+    `finished`, finite losses and metrics. (c) R18 96x128 f32 b2 with two
+    cameras (96x128, 106x146), 4 card steps, then the eval outputs and
+    the metrics of a full-resolution validation, card against CPU, under
+    phase 8's limits."""
+    import shutil
+    import tempfile
+
+    from emsanet_tpu_torch import train as trainer
+    from emsanet_tpu_torch.datasets import pack
+    from emsanet_tpu_torch.ops import nbt1d_train as tm
+    from emsanet_tpu_torch.ops import semantic_train_head as hm
+    from emsanet_tpu_torch.training.step import extract_device_batch
+
+    torch.set_grad_enabled(True)
+    all_modules = {**modules, "nbt1d_train": tm, "semantic_train_head": hm}
+    all_kernels = KERNELS + TRAIN_KERNELS
+    report = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dataset_")
+    try:
+        # (a) write, read back, pack, time the loader
+        t0 = time.perf_counter()
+        roots = {"png": os.path.join(tmp, "png"),
+                 "packed": os.path.join(tmp, "packed")}
+        written = write_prepared(roots["png"], DATASET_TRAIN,
+                                 DATASET_CAMERAS, DATASET_VALID_PER_CAMERA)
+        n = check_raw_samples(roots["png"], written)
+        shutil.copytree(roots["png"], roots["packed"])
+        for split in ("train", "test"):
+            pack.pack_split(roots["packed"], split)
+        n_packed = check_raw_samples(roots["packed"], written)
+        del written
+        log(f"[dataset] wrote {n} samples (PNG, {PNG_FILTER} row filters) "
+            f"and their packed copy in {time.perf_counter() - t0:.1f} s; "
+            f"read back equal to the generator: {n} PNG, {n_packed} packed")
+        flags = ["--dataset", "nyuv2", "--tasks", "semantic", "instance",
+                 "orientation", "scene", "--enable-panoptic",
+                 "--mixed-precision", "--fused-training", "--batch-size",
+                 "8", "--validation-batch-size", "8",
+                 "--head-decode-fusion", "auto", "--n-workers",
+                 str(LOADER_WORKERS), "--validation-force-interval", "1"]
+        cfg, _, _ = trainer.parse_args(flags + ["--dataset-path",
+                                                roots["png"]])
+        loader = loader_times(torch, roots, cfg)
+        log(f"[dataset] loader host ms per b8 batch (flagship train "
+            f"preprocessing, 640x480, 3 batches; files/workers/count), "
+            f"all equal bit for bit: " + json.dumps(
+                {k: round(v, 1) for k, v in loader.items()
+                 if isinstance(v, float)}))
+        log(f"[dataset] a loader worker process: "
+            f"{json.dumps(loader['worker_process'])}; PNG reader steps on "
+            f"one 480x640 RGB image ({loader['png_rgb_bytes']} bytes), ms: "
+            + json.dumps({k: round(v, 3) for k, v in
+                          loader["png_rgb_ms"].items()}))
+        report["loader_ms_per_b8_batch"] = loader
+
+        # (b) the flagship from disk, process workers
+        runs = os.path.join(tmp, "runs")
+        cfg, _, used = trainer.parse_args(flags + [
+            "--dataset-path", roots["png"], "--worker-mode", "process",
+            "--n-epochs", "2", "--results-basepath", runs])
+        t0 = time.perf_counter()
+        run = trainer.setup(cfg, "cuda")
+        run_dir = trainer.make_run_dir(cfg, used)
+        setup_s = time.perf_counter() - t0
+        reset_counts(all_modules, all_kernels)
+        t0 = time.perf_counter()
+        logs = trainer.train(run, run_dir)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        launches = counts(all_modules, all_kernels)
+        need = (PATH_KERNELS["decode-planes"] - {"decoder_trunk"}) | {
+            name for name, *_ in TRAIN_KERNELS}
+        missing = sorted(k for k in need if launches[k] <= 0)
+        if missing:
+            raise AssertionError(f"[dataset] kernels {missing} were not "
+                                 "launched by the run from disk")
+        if not os.path.exists(os.path.join(run_dir, "finished")):
+            raise AssertionError("[dataset] the run from disk did not finish")
+        with open(os.path.join(run_dir, "metrics.csv")) as fh:
+            header, *rows = [r.split(",") for r in
+                             fh.read().strip().splitlines()]
+        epochs = [dict(zip(header, r)) for r in rows]
+        bad = [k for e in epochs for k, v in e.items()
+               if k.startswith(("train_", "valid_"))
+               and not math.isfinite(float(v))]
+        if len(epochs) != 2 or bad:
+            raise AssertionError(f"[dataset] metrics.csv: {len(epochs)} "
+                                 f"epochs, not finite: {bad}")
+        times = {k: [float(e[k]) for e in epochs]
+                 for k in ("time_train_s", "time_valid_s")}
+        log(f"[dataset] flagship R34 640x480 bf16 b8 from PNG files, process "
+            f"workers, 2 epochs of {len(run.data.train_loader)} steps, "
+            f"validating each over {list(run.data.valid_loaders)}: setup "
+            f"{setup_s:.1f} s, loop {loop_s:.1f} s (sanity check included); "
+            f"epoch s {times['time_train_s']}, validation s "
+            f"{times['time_valid_s']}; launches {json.dumps(launches)}; "
+            f"epoch 1 {json.dumps(logs)}")
+        report["flagship"] = {"setup_s": setup_s, "loop_s": loop_s,
+                              **times, "launches": launches,
+                              "epoch_1": logs}
+        ckpt = os.path.join(run_dir, "checkpoints", "ckpt_resume.pt")
+        del run
+        torch.cuda.empty_cache()
+        cfg, _, used = trainer.parse_args(flags + [
+            "--dataset-path", roots["packed"], "--validation-only",
+            "--validation-full-resolution", "--skip-sanity-check",
+            "--weights-filepath", ckpt, "--results-basepath", runs])
+        run = trainer.setup(cfg, "cuda")
+        shapes = sorted({tuple(b["rgb"].shape[1:3]) for loader in
+                         run.data.valid_loaders.values()
+                         for b in loader.batches(0)})
+        reset_counts(all_modules, all_kernels)
+        t0 = time.perf_counter()
+        valid = trainer.train(run, trainer.make_run_dir(cfg, used))
+        torch.cuda.synchronize()
+        valid_s = time.perf_counter() - t0
+        launches = counts(all_modules, all_kernels)
+        missing = sorted(k for k in PATH_KERNELS["decode-planes"]
+                         if k != "decoder_trunk" and launches[k] <= 0)
+        bad = [k for k, v in valid.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if missing or bad or (544, 736) not in shapes:
+            raise AssertionError(f"[dataset] full-resolution validation: "
+                                 f"kernels {missing} not launched, not "
+                                 f"finite {bad}, shapes {shapes}")
+        log(f"[dataset] full-resolution validation from packed files "
+            f"(padded shapes {shapes}): {valid_s:.2f} s; launches "
+            f"{json.dumps(launches)}; {json.dumps(valid)}")
+        report["full_resolution"] = {"valid_s": valid_s, "shapes": shapes,
+                                     "launches": launches, "logs": valid}
+        del run
+        torch.cuda.empty_cache()
+
+        # (c) card against CPU at full resolution, two cameras
+        small_root = os.path.join(tmp, "small")
+        write_prepared(small_root, 4, SMALL_CAMERAS, 2)
+        cfg, _, _ = trainer.parse_args([
+            "--dataset", "nyuv2", "--dataset-path", small_root, "--tasks",
+            "semantic", "instance", "orientation", "scene",
+            "--enable-panoptic", "--rgb-encoder-backbone", "resnet18",
+            "--depth-encoder-backbone", "resnet18", "--input-height", "96",
+            "--input-width", "128", "--fused-training", "--batch-size", "2",
+            "--validation-batch-size", "2", "--head-decode-fusion", "auto",
+            "--class-weighting", "none", "--n-workers", "4",
+            "--validation-full-resolution"])
+        card_run = trainer.setup(cfg, "cuda")
+        for epoch in range(2):
+            for i, batch in enumerate(
+                    card_run.data.train_loader.batches(epoch)):
+                card_run.train_step(
+                    extract_device_batch(batch, "cuda"),
+                    trainer.dropout_generator_for(0, epoch, i, "cuda"))
+        cpu_run = trainer.setup(cfg, "cpu")
+        cpu_run.model.load_state_dict({k: v.cpu() for k, v in
+                                       card_run.model.state_dict().items()})
+        outs = eval_outputs_card_vs_cpu(torch, trainer, card_run, cpu_run)
+        diffs = metrics_card_vs_cpu(trainer.run_validation(card_run, 0),
+                                    trainer.run_validation(cpu_run, 0),
+                                    "[dataset]")
+        log(f"[dataset] R18 f32 b2, cameras {list(card_run.data.valid_loaders)}"
+            f" at full resolution, card vs CPU after 4 card steps: eval "
+            f"outputs {json.dumps(outs)}; largest metric difference "
+            f"{max(diffs.values()):.3e} ({max(diffs, key=diffs.get)})")
+        report["card_vs_cpu"] = {"outputs": outs, "metric_diffs": diffs}
+        del card_run, cpu_run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.set_grad_enabled(False)
+    return report
 
 
 def main() -> int:

@@ -13,8 +13,9 @@ version, as the reference's interpret mode), 'off' never. Training
 ignores it, as the reference does.
 `EMSANetConfig.validate` applies the reference's post-parse rules that
 training needs (task weighting, learning-rate scaling by batch size / 8,
-forced raw depth, the validation split, input size and batch size
-defaults). `best_head_decode_fusion` is the reference's mode
+the shared pretrained-backbone path, the scene-label polarity, forced
+raw depth, the validation split of NYUv2 and SUNRGB-D, the validation
+input size and batch size defaults). `best_head_decode_fusion` is the reference's mode
 choice per batch size.
 
 `validate_for_port` and `validate_train_for_port` refuse, with a "not
@@ -25,7 +26,7 @@ never fall back to another path.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 KNOWN_TASKS = ("semantic", "instance", "orientation", "scene", "normal")
 HEAD_DECODE_FUSIONS = ("interleave", "decode", "decode-both", "decode-planes")
@@ -89,6 +90,12 @@ class ModelConfig:
     semantic_no_multiscale_supervision: bool = False
     instance_no_multiscale_supervision: bool = False
 
+    # ImageNet-pretrained encoder backbones (torchvision ResNet files);
+    # the shared path fills each modality's that is not given
+    encoder_backbone_pretrained_weights_filepath: Optional[str] = None
+    rgb_encoder_backbone_pretrained_weights_filepath: Optional[str] = None
+    depth_encoder_backbone_pretrained_weights_filepath: Optional[str] = None
+
     compute_dtype: str = "float32"
     fused_inference: bool = True
     # training: stride-1 NBt1D tails through the pair kernels
@@ -135,10 +142,12 @@ class ModelConfig:
 
 @dataclass
 class DataConfig:
-    """Dataset and augmentation fields the training step reads."""
+    """Dataset, loader and augmentation fields."""
 
-    dataset: str = "nyuv2"
+    dataset: str = "nyuv2"  # 'a[cam1,cam2]:b' joins datasets
+    dataset_path: Optional[str] = None  # one path, or one per dataset
     split: str = "train"
+    validation_split: str = "valid"  # nyuv2 / sunrgbd: 'test'
     raw_depth: bool = False
     aug_scale_min: float = 1.0
     aug_scale_max: float = 1.4
@@ -146,6 +155,24 @@ class DataConfig:
     batch_size: int = 8
     validation_batch_size: Optional[int] = None  # 3 * batch_size
     n_workers: int = 8
+    # 'thread', or 'process' (workers from a forkserver, away from CUDA)
+    worker_mode: str = "thread"
+    # one fraction, or one per concatenated dataset
+    subset_train: Union[float, Tuple[float, ...]] = 1.0
+    subset_deterministic: bool = False
+    cache_dataset: bool = False
+    scannet_semantic_n_classes: int = 40
+    scannet_subsample: int = 50
+    validation_scannet_subsample: int = 100
+    hypersim_subsample: int = 1
+    # the indoor-domestic scene labels are the default;
+    # `use_original_scene_labels` keeps each dataset's own
+    use_original_scene_labels: bool = False
+    scene_use_indoor_domestic_labels: bool = True
+    validation_scannet_benchmark_mode: bool = False
+    validation_full_resolution: bool = False
+    validation_input_height: Optional[int] = None  # the input height
+    validation_input_width: Optional[int] = None
     class_weighting: str = "median-frequency"
     class_weighting_c: float = 1.02
     synthetic_n_samples: int = 16
@@ -208,10 +235,25 @@ class EMSANetConfig:
             raise ValueError(
                 f"tasks_weighting has {len(t.tasks_weighting)} entries but "
                 f"{len(m.tasks)} tasks are enabled.")
+        if m.encoder_backbone_pretrained_weights_filepath:
+            for mod in ("rgb", "depth"):
+                key = f"{mod}_encoder_backbone_pretrained_weights_filepath"
+                if getattr(m, key) is None:
+                    setattr(m, key,
+                            m.encoder_backbone_pretrained_weights_filepath)
+        if d.use_original_scene_labels:
+            d.scene_use_indoor_domestic_labels = False
         t.learning_rate = t.learning_rate * d.batch_size / 8
-        if d.dataset.split(":")[0].split("[")[0] in ("cityscapes",
-                                                     "hypersim", "scannet"):
+        main_dataset = d.dataset.split(":")[0].split("[")[0]
+        if main_dataset in ("cityscapes", "hypersim", "scannet"):
             d.raw_depth = True
+        if main_dataset in ("nyuv2", "sunrgbd") and (
+                d.validation_split == "valid"):
+            d.validation_split = "test"
+        if d.validation_input_height is None:
+            d.validation_input_height = m.input_height
+        if d.validation_input_width is None:
+            d.validation_input_width = m.input_width
         if t.mixed_precision and m.compute_dtype == "float32":
             m.compute_dtype = "bfloat16"  # parameters stay float32
         if d.validation_batch_size is None:
@@ -300,8 +342,6 @@ def validate_train_for_port(cfg: EMSANetConfig) -> EMSANetConfig:
     d, t = cfg.data, cfg.train
     if (t.n_devices or 1) > 1:
         _refuse(f"n_devices={t.n_devices} (data parallel training)")
-    if d.dataset != "synthetic":
-        _refuse(f"dataset '{d.dataset}' (only 'synthetic' has a loader)")
     if t.visualize_validation:
         _refuse("visualize_validation (the visualization module)")
     if t.optimizer not in KNOWN_OPTIMIZERS:

@@ -1,1 +1,2 @@
-"""Dataset metadata of the port."""
+"""Datasets of the port: metadata, the synthetic dataset, prepared
+datasets on disk, their PNG reader and packer, and the registry."""

@@ -1,12 +1,10 @@
 """The synthetic in-memory dataset, for training without data on disk.
 
-A copy of `emsanet_tpu/datasets/synthetic.py::SyntheticDataset`, with
-what it needs of `datasets/base.py` (the sample access, the preprocessor
-hook and `semantic_compute_class_weights`) and of `datasets/registry.py`
-(`derive_sample_keys`, the synthetic branch of `get_dataset`). Samples
-are deterministic per (split, index) and equal the JAX package's bit for
-bit: a gradient background with stuff bands and a few rectangular
-'things' carrying instance ids, orientations and a scene class.
+A copy of `emsanet_tpu/datasets/synthetic.py::SyntheticDataset` on the
+port's dataset base (`datasets/base.py`). Samples are deterministic per
+(split, index) and equal the JAX package's bit for bit: a gradient
+background with stuff bands and a few rectangular 'things' carrying
+instance ids, orientations and a scene class.
 """
 
 from __future__ import annotations
@@ -16,46 +14,17 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from emsanet_tpu_torch.datasets.base import (
+    SampleIdentifier,
+    SceneAnalysisDataset,
+)
 from emsanet_tpu_torch.datasets.metadata import (
     DatasetConfig,
     get_dataset_config,
 )
 
 
-class SampleIdentifier(tuple):
-    """Hierarchical sample identifier, e.g. ('train', '0001')."""
-
-    def to_filename(self, separator: str = "__") -> str:
-        return separator.join(self)
-
-
-def derive_sample_keys(input_modalities: Sequence[str],
-                       tasks: Sequence[str]) -> Tuple[str, ...]:
-    """Sample keys needed for the modalities and tasks."""
-    keys = ["identifier"]
-    if "rgb" in input_modalities or "rgbd" in input_modalities:
-        keys.append("rgb")
-    if "depth" in input_modalities or "rgbd" in input_modalities:
-        keys.append("depth")
-    if "semantic" in tasks:
-        keys.append("semantic")
-    if "instance" in tasks:
-        keys.append("instance")
-        if "semantic" not in keys:
-            keys.append("semantic")  # thing/stuff needed for targets
-    if "orientation" in tasks:
-        keys.append("orientations")
-    if "scene" in tasks:
-        keys.append("scene")
-    if "normal" in tasks:
-        keys.append("normal")
-    return tuple(keys)
-
-
-class SyntheticDataset:
-    """Map-style dataset of sample dicts; `preprocessor` (dict -> dict)
-    applies on access."""
-
+class SyntheticDataset(SceneAnalysisDataset):
     def __init__(
         self,
         split: str = "train",
@@ -67,34 +36,34 @@ class SyntheticDataset:
         height: int = 480,
         width: int = 640,
         dataset_config: Optional[DatasetConfig] = None,
+        use_cache: bool = False,
+        cameras: Tuple[str, ...] = ("synth0",),
     ):
-        self.sample_keys = tuple(sample_keys)
-        self.preprocessor = None
+        super().__init__(sample_keys=sample_keys, use_cache=use_cache)
         self.split = split
         self.n_samples = n_samples
         self.height = height
         self.width = width
-        self.config = dataset_config or get_dataset_config("synthetic")
+        self._config = dataset_config or get_dataset_config("synthetic")
+        self._cameras = tuple(cameras)
 
     def __len__(self) -> int:
         return self.n_samples
 
     @property
+    def config(self) -> DatasetConfig:
+        return self._config
+
+    @property
     def cameras(self) -> Tuple[str, ...]:
-        return ("synth0",)
+        return self._cameras
 
-    def __getitem__(self, idx: int) -> dict:
-        sample = self.load_raw(idx)
-        if self.preprocessor is not None:
-            sample = self.preprocessor(sample)
-        return sample
-
-    def load_raw(self, idx: int) -> dict:
+    def _load(self, idx: int) -> dict:
         # stable per-(split, idx) seed (hash() is randomized per process)
         seed = zlib.crc32(f"{self.split}:{idx}".encode()) % (2**31)
         rng = np.random.RandomState(seed)
         h, w = self.height, self.width
-        cfg = self.config
+        cfg = self._config
         is_thing = np.asarray(cfg.classes_is_thing)
         thing_ids = np.flatnonzero(is_thing)
         stuff_ids = np.flatnonzero(~is_thing)[1:]  # skip void
@@ -152,49 +121,8 @@ class SyntheticDataset:
         if "scene" in self.sample_keys:
             n_scene = len(cfg.scene_class_names)
             sample["scene"] = int(rng.randint(1, n_scene))
+        if "normal" in self.sample_keys:
+            normal = np.zeros((h, w, 3), dtype=np.float32)
+            normal[..., 2] = 1.0
+            sample["normal"] = normal
         return sample
-
-    def semantic_compute_class_weights(
-        self, weight_mode: str = "median-frequency", c: float = 1.02,
-    ) -> np.ndarray:
-        """Per-class weights of the semantic CE for classes 1..C (void
-        excluded), from every sample's labels:
-        median-frequency w_c = median(freq) / freq_c, logarithmic
-        w_c = 1 / ln(c + p_c), linear 1 - p_c, none 1."""
-        n_classes = len(self.config.semantic_class_names)
-        counts = np.zeros(n_classes, dtype=np.int64)
-        pixel_totals = np.zeros(n_classes, dtype=np.int64)
-        for i in range(len(self)):
-            sem = self.load_raw(i)["semantic"]
-            binc = np.bincount(sem.reshape(-1), minlength=n_classes)
-            pixel_totals += binc[:n_classes]
-            counts += (binc[:n_classes] > 0).astype(np.int64)
-        pixel_totals = pixel_totals[1:]
-        counts = np.maximum(counts[1:], 1)
-        if weight_mode == "none":
-            return np.ones(n_classes - 1, dtype=np.float32)
-        if weight_mode == "median-frequency":
-            freq = np.maximum(pixel_totals / counts, 1)
-            return (np.median(freq) / freq).astype(np.float32)
-        if weight_mode == "logarithmic":
-            p = pixel_totals / max(pixel_totals.sum(), 1)
-            return (1.0 / np.log(c + p)).astype(np.float32)
-        if weight_mode == "linear":
-            p = pixel_totals / max(pixel_totals.sum(), 1)
-            return (1.0 - p).astype(np.float32)
-        raise ValueError(f"Unknown class weighting '{weight_mode}'")
-
-
-def get_dataset(data_cfg, model_cfg, split: str) -> SyntheticDataset:
-    """The dataset of a split ('synthetic' only: the prepared datasets on
-    disk are not ported yet)."""
-    if data_cfg.dataset != "synthetic":
-        raise NotImplementedError(
-            f"not ported yet: dataset '{data_cfg.dataset}'")
-    return SyntheticDataset(
-        split=split,
-        sample_keys=derive_sample_keys(model_cfg.input_modalities,
-                                       model_cfg.tasks),
-        n_samples=data_cfg.synthetic_n_samples,
-        height=model_cfg.input_height, width=model_cfg.input_width,
-    )

@@ -1,1 +1,2 @@
-"""Host-side preprocessing and batch collation (numpy), train phase."""
+"""Host-side preprocessing and batch collation (numpy and the host
+library)."""

@@ -8,7 +8,7 @@ from typing import Any, Dict, Sequence
 
 import numpy as np
 
-from emsanet_tpu_torch.datasets.synthetic import SampleIdentifier
+from emsanet_tpu_torch.datasets.base import SampleIdentifier
 
 # values of these kinds are collected into lists, not stacked
 _LIST_KEYS_SUFFIX = ("identifier", "orientations", "orientations_present")

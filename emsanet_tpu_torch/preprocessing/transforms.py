@@ -1,17 +1,23 @@
-"""Host-side preprocessing of the train and test phases, in numpy.
+"""Host-side preprocessing of the train and test phases.
 
 A copy of the transforms of `emsanet_tpu/preprocessing/transforms.py`
 that `get_preprocessor(..., phase="train" or "test")` composes, in the
-order of `emsanet/preprocessing.py`: [clone raw inputs] -> clear stuff
-instance ids -> train: random resize -> random crop -> HSV jitter ->
-horizontal flip | test: panoptic target -> full-resolution copies ->
-resize -> multiscale sub-samples -> instance targets -> orientation
-targets -> normalize -> canonicalize. Each transform is the JAX
-package's numpy path; that package also has a native C++ library for
-some of them, whose results may differ in the last bit, so the tests
-compare with it switched off. Validation at full resolution and the
-ScanNet benchmark mapping are not ported (the port's datasets do not
-need them).
+order of `emsanet/preprocessing.py`: [clone raw inputs] -> [ScanNet
+benchmark classes to void] -> [SUNRGB-D combined: its last 3 classes to
+void] -> clear stuff instance ids -> train: random resize -> random crop
+-> HSV jitter -> horizontal flip | test: panoptic target -> full-
+resolution copies -> resize to the validation input size (not with
+`validation_full_resolution`) -> multiscale sub-samples -> instance
+targets -> orientation targets -> normalize -> canonicalize -> [full
+resolution: pad to a multiple of 32, the pre-pad size in `_prepad_hw`].
+
+The resizes, the HSV jitter, the instance targets and the RGB
+normalization run in the port's host library (`native.py`) where the
+JAX package runs its own, on the same inputs, so the batches equal the
+JAX package's bit for bit; the numpy bodies beside them
+(`_resize_nearest_plain`, ...) are the plain versions the tests hold the
+library against. The depth normalization is numpy, as in the JAX
+package.
 
 Per-sample randomness comes from `sample['_rng']`, a
 `np.random.Generator` the loader seeds per (epoch, index).
@@ -23,6 +29,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from emsanet_tpu_torch import native
+from emsanet_tpu_torch.datasets import scannet as scannet_meta
 from emsanet_tpu_torch.metrics import deeplab_merge_numpy
 
 APPLIED_PREPROCESSING_KEY = "_applied_preprocessing"
@@ -46,14 +54,22 @@ def _rng_of(sample: dict) -> np.random.Generator:
     return rng
 
 
-def _resize_nearest(img: np.ndarray, h: int, w: int) -> np.ndarray:
+def _resize_nearest_plain(img: np.ndarray, h: int, w: int) -> np.ndarray:
     ih, iw = img.shape[:2]
     ys = np.minimum((np.arange(h) + 0.5) * ih / h, ih - 1).astype(np.int64)
     xs = np.minimum((np.arange(w) + 0.5) * iw / w, iw - 1).astype(np.int64)
     return img[ys][:, xs]
 
 
-def _resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:
+def _resize_nearest(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    if img.ndim == 2 and img.dtype in (np.int32, np.int64, np.uint8,
+                                       np.uint16):
+        return native.resize_nearest_i32(img.astype(np.int32), h,
+                                         w).astype(img.dtype)
+    return _resize_nearest_plain(img, h, w)
+
+
+def _resize_bilinear_plain(img: np.ndarray, h: int, w: int) -> np.ndarray:
     ih, iw = img.shape[:2]
     if (ih, iw) == (h, w):
         return img
@@ -81,12 +97,34 @@ def _resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:
     return out
 
 
-def _resize_sample_key(key: str, value: np.ndarray, h: int, w: int):
+def _resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    if img.shape[:2] == (h, w):
+        return img
+    if img.dtype in (np.float32, np.uint8) and img.ndim <= 3:
+        return native.resize_bilinear_f32(img.astype(np.float32), h, w)
+    return _resize_bilinear_plain(img, h, w)
+
+
+def _resize_sample_key_plain(key: str, value: np.ndarray, h: int, w: int):
+    """The numpy path of `_resize_sample_key`."""
     if key in _NEAREST_KEYS:
-        return _resize_nearest(value, h, w)
+        return _resize_nearest_plain(value, h, w)
     if value.dtype == np.uint8 and value.ndim <= 3 and (
             value.shape[:2] == (h, w)):
         return value
+    out = _resize_bilinear_plain(value, h, w)
+    if np.issubdtype(value.dtype, np.integer):
+        return np.round(out).astype(value.dtype)
+    return out.astype(value.dtype)
+
+
+def _resize_sample_key(key: str, value: np.ndarray, h: int, w: int):
+    if key in _NEAREST_KEYS:
+        return _resize_nearest(value, h, w)
+    if value.dtype == np.uint8 and value.ndim <= 3:
+        if value.shape[:2] == (h, w):
+            return value
+        return native.resize_bilinear_u8(value, h, w)
     out = _resize_bilinear(value, h, w)
     if np.issubdtype(value.dtype, np.integer):
         return np.round(out).astype(value.dtype)
@@ -240,39 +278,45 @@ class RandomHSVJitter:
         dh = rng.uniform(-self.hue_jitter, self.hue_jitter)
         ds = rng.uniform(-self.saturation_jitter, self.saturation_jitter)
         dv = rng.uniform(-self.value_jitter, self.value_jitter)
-        rgb = sample["rgb"].astype(np.float32) / 255.0
-        maxc = rgb.max(-1)
-        minc = rgb.min(-1)
-        v = maxc
-        delta = maxc - minc
-        s = np.where(maxc > 0, delta / np.maximum(maxc, 1e-12), 0.0)
-        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-        with np.errstate(invalid="ignore", divide="ignore"):
-            dd = np.maximum(delta, 1e-12)
-            h = np.where(
-                maxc == r, (g - b) / dd % 6,
-                np.where(maxc == g, (b - r) / dd + 2, (r - g) / dd + 4),
-            ) / 6.0
-        h = np.where(delta > 0, h, 0.0)
-
-        h = (h + dh) % 1.0
-        s = np.clip(s + ds, 0, 1)
-        v = np.clip(v + dv, 0, 1)
-        i = np.floor(h * 6).astype(np.int32) % 6
-        f = h * 6 - np.floor(h * 6)
-        p = v * (1 - s)
-        q = v * (1 - f * s)
-        t = v * (1 - (1 - f) * s)
-        choices = np.stack([
-            np.stack([v, t, p], -1), np.stack([q, v, p], -1),
-            np.stack([p, v, t], -1), np.stack([p, q, v], -1),
-            np.stack([t, p, v], -1), np.stack([v, p, q], -1),
-        ], 0)
-        out = np.take_along_axis(
-            choices, i[None, ..., None].astype(np.int64), axis=0
-        )[0]
-        sample["rgb"] = np.clip(out * 255.0, 0, 255).astype(np.uint8)
+        sample["rgb"] = native.hsv_jitter(sample["rgb"], dh, ds, dv)
         return sample
+
+
+def _hsv_jitter_plain(rgb_u8: np.ndarray, dh: float, ds: float,
+                      dv: float) -> np.ndarray:
+    """The numpy path of `RandomHSVJitter` for drawn jitters."""
+    rgb = rgb_u8.astype(np.float32) / 255.0
+    maxc = rgb.max(-1)
+    minc = rgb.min(-1)
+    v = maxc
+    delta = maxc - minc
+    s = np.where(maxc > 0, delta / np.maximum(maxc, 1e-12), 0.0)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        dd = np.maximum(delta, 1e-12)
+        h = np.where(
+            maxc == r, (g - b) / dd % 6,
+            np.where(maxc == g, (b - r) / dd + 2, (r - g) / dd + 4),
+        ) / 6.0
+    h = np.where(delta > 0, h, 0.0)
+
+    h = (h + dh) % 1.0
+    s = np.clip(s + ds, 0, 1)
+    v = np.clip(v + dv, 0, 1)
+    i = np.floor(h * 6).astype(np.int32) % 6
+    f = h * 6 - np.floor(h * 6)
+    p = v * (1 - s)
+    q = v * (1 - f * s)
+    t = v * (1 - (1 - f) * s)
+    choices = np.stack([
+        np.stack([v, t, p], -1), np.stack([q, v, p], -1),
+        np.stack([p, v, t], -1), np.stack([p, q, v], -1),
+        np.stack([t, p, v], -1), np.stack([v, p, q], -1),
+    ], 0)
+    out = np.take_along_axis(
+        choices, i[None, ..., None].astype(np.int64), axis=0
+    )[0]
+    return np.clip(out * 255.0, 0, 255).astype(np.uint8)
 
 
 class RandomHorizontalFlip:
@@ -297,6 +341,22 @@ class RandomHorizontalFlip:
         return sample
 
 
+class SemanticClassMapper:
+    """Map a set of classes to a new label (the ScanNet benchmark mode,
+    SUNRGB-D combined with other datasets)."""
+
+    def __init__(self, classes_to_map: Sequence[int], new_label: int = 0):
+        self.classes_to_map = np.asarray(tuple(classes_to_map), np.int64)
+        self.new_label = new_label
+
+    def __call__(self, sample: dict) -> dict:
+        if "semantic" in sample and len(self.classes_to_map):
+            sem = sample["semantic"]
+            mask = np.isin(sem, self.classes_to_map)
+            sample["semantic"] = np.where(mask, self.new_label, sem)
+        return sample
+
+
 class InstanceClearStuffIDs:
     """Force instance id 0 on stuff and void pixels."""
 
@@ -315,6 +375,15 @@ def _instance_targets(semantic: np.ndarray, instance: np.ndarray,
                       normalized_offset: bool) -> Dict[str, np.ndarray]:
     """Gaussian center heatmap, offsets to the center, foreground and the
     heatmap loss mask (Panoptic-DeepLab targets)."""
+    return native.instance_targets(semantic, instance, is_thing, sigma,
+                                   normalized_offset)
+
+
+def _instance_targets_plain(semantic: np.ndarray, instance: np.ndarray,
+                            is_thing: np.ndarray, sigma: float,
+                            normalized_offset: bool
+                            ) -> Dict[str, np.ndarray]:
+    """The numpy path of `_instance_targets`."""
     h, w = instance.shape
     center = np.zeros((h, w), np.float32)
     offset = np.zeros((h, w, 2), np.float32)
@@ -441,11 +510,18 @@ class MultiscaleSupervisionGenerator:
         return sample
 
 
+def _normalize_rgb_plain(rgb: np.ndarray) -> np.ndarray:
+    return (rgb.astype(np.float32) / 255.0 - RGB_MEAN) / RGB_STD
+
+
 class NormalizeRGB:
     def __call__(self, sample: dict) -> dict:
         if "rgb" in sample:
-            rgb = sample["rgb"].astype(np.float32) / 255.0
-            sample["rgb"] = (rgb - RGB_MEAN) / RGB_STD
+            rgb = sample["rgb"]
+            if rgb.dtype == np.uint8 and rgb.ndim == 3 and rgb.shape[-1] == 3:
+                sample["rgb"] = native.normalize_rgb(rgb, RGB_MEAN, RGB_STD)
+            else:
+                sample["rgb"] = _normalize_rgb_plain(rgb)
         return sample
 
 
@@ -466,6 +542,39 @@ class NormalizeDepth:
             if normalized.ndim == 2:
                 normalized = normalized[..., None]
             sample["depth"] = normalized
+        return sample
+
+
+class PadToMultiple:
+    """Pad the network-resolution arrays at the bottom and right to
+    multiples of `multiple` (32, the encoder's stride) for validation at
+    full resolution, so cameras whose sizes round up alike share shapes.
+    The pre-pad size goes to `_prepad_hw`; the task helpers crop the
+    predictions back before scoring. `*_fullres` targets stay as they
+    are."""
+
+    def __init__(self, multiple: int = 32):
+        self.multiple = multiple
+
+    def __call__(self, sample: dict) -> dict:
+        ref = sample.get("rgb", sample.get("depth"))
+        if ref is None:
+            return sample
+        h, w = ref.shape[:2]
+        m = self.multiple
+        hp = -(-h // m) * m
+        wp = -(-w // m) * m
+        sample["_prepad_hw"] = np.asarray([h, w], np.int32)
+        if hp == h and wp == w:
+            return sample
+        for k in list(sample.keys()):
+            v = sample[k]
+            if (not isinstance(v, np.ndarray) or k.startswith("_")
+                    or k.endswith("_fullres") or v.ndim < 2
+                    or v.shape[:2] != (h, w)):
+                continue
+            pad = [(0, hp - h), (0, wp - w)] + [(0, 0)] * (v.ndim - 2)
+            sample[k] = np.pad(v, pad)  # zeros: void labels, masked out
         return sample
 
 
@@ -502,18 +611,34 @@ class ToArrays:
 
 def get_preprocessor(cfg, dataset_config, phase: str,
                      multiscale_downscales: Optional[Tuple[int, ...]] = None,
-                     keep_raw_inputs: bool = False) -> Compose:
+                     keep_raw_inputs: bool = False,
+                     sunrgbd_combined: bool = False) -> Compose:
     """The transform chain of a phase ('train' or 'test'). cfg:
     EMSANetConfig; dataset_config: `datasets.metadata.DatasetConfig`.
-    The test phase resizes to the model's input size."""
+    The test phase resizes to the validation input size, or with
+    `validation_full_resolution` keeps each sample's own size and pads it
+    to a multiple of 32. `sunrgbd_combined`: SUNRGB-D first among other
+    datasets, whose classes 38-40 it lacks, so they become void."""
     if phase not in ("train", "test"):
         raise ValueError(f"phase must be 'train' or 'test', got '{phase}'")
     m, d = cfg.model, cfg.data
     is_thing = dataset_config.classes_is_thing
     has_instance = "instance" in m.tasks
     transforms = []
-    if keep_raw_inputs:
+    if keep_raw_inputs or cfg.train.visualize_validation:
         transforms.append(CloneEntries())
+    if phase == "test" and d.validation_scannet_benchmark_mode:
+        if d.scannet_semantic_n_classes not in (40, 549):
+            raise ValueError("the ScanNet benchmark mode needs 40 or 549 "
+                             "classes")
+        mapping = (
+            scannet_meta.SEMANTIC_CLASSES_40_MAPPING_TO_BENCHMARK
+            if d.scannet_semantic_n_classes == 40
+            else scannet_meta.SEMANTIC_CLASSES_549_MAPPING_TO_BENCHMARK200)
+        transforms.append(SemanticClassMapper(
+            scannet_meta.classes_to_ignore(mapping), new_label=0))
+    if sunrgbd_combined:
+        transforms.append(SemanticClassMapper((38, 39, 40), 0))
     if has_instance:
         transforms.append(InstanceClearStuffIDs(is_thing))
     if phase == "train":
@@ -529,7 +654,9 @@ def get_preprocessor(cfg, dataset_config, phase: str,
         transforms.append(FullResCloner(
             ("rgb", "depth", "semantic", "normal", "instance", "panoptic"),
             ignore_missing_keys=True))
-        transforms.append(Resize(m.input_height, m.input_width))
+        if not d.validation_full_resolution:
+            transforms.append(Resize(d.validation_input_height,
+                                     d.validation_input_width))
 
     if multiscale_downscales:
         keys = ["identifier"]
@@ -554,9 +681,13 @@ def get_preprocessor(cfg, dataset_config, phase: str,
     if "orientation" in m.tasks:
         transforms.append(OrientationTargetGenerator(
             dataset_config.classes_use_orientations))
-    transforms.append(NormalizeRGB())
-    transforms.append(NormalizeDepth(
-        depth_mean=dataset_config.depth_stats.mean,
-        depth_std=dataset_config.depth_stats.std, raw_depth=d.raw_depth))
+    if "rgb" in m.input_modalities or "rgbd" in m.input_modalities:
+        transforms.append(NormalizeRGB())
+    if "depth" in m.input_modalities or "rgbd" in m.input_modalities:
+        transforms.append(NormalizeDepth(
+            depth_mean=dataset_config.depth_stats.mean,
+            depth_std=dataset_config.depth_stats.std, raw_depth=d.raw_depth))
     transforms.append(ToArrays())
+    if phase != "train" and d.validation_full_resolution:
+        transforms.append(PadToMultiple(32))
     return Compose(transforms)

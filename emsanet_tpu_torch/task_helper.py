@@ -7,9 +7,9 @@ panoptic and orientation helpers and `get_task_helpers`). The protocol is
 `validation_epoch_end() -> (artifacts, logs)`, with `batch` the collated
 numpy batch and `predictions` numpy arrays of the eval step's outputs
 (`PREDICTION_KEYS` are the ones the helpers read). They run on the host.
-Nearest resizes of id maps take the numpy path (the JAX package's native
-library is not ported). The normal task's helper is not ported: the
-port refuses the normal decoder.
+Nearest resizes of id maps to the ground truth's resolution run in the
+host library (`native.resize_nearest_i32`), as in the JAX package. The
+normal task's helper is not ported: the port refuses the normal decoder.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from emsanet_tpu_torch import native
 from emsanet_tpu_torch.config import NotPortedError
 from emsanet_tpu_torch.metrics import (
     LABEL_DIVISOR,
@@ -57,13 +58,11 @@ def _valid_slice(batch, arr):
 
 
 def _resize_ids_nearest(ids: np.ndarray, oh: int, ow: int) -> np.ndarray:
-    """Nearest resize of an id map (host-side)."""
+    """Nearest resize of an id map, in the host library."""
     if ids.shape == (oh, ow):
         return ids
-    ih, iw = ids.shape
-    ys = np.minimum((np.arange(oh) + 0.5) * ih / oh, ih - 1).astype(np.int64)
-    xs = np.minimum((np.arange(ow) + 0.5) * iw / ow, iw - 1).astype(np.int64)
-    return ids[ys][:, xs]
+    return native.resize_nearest_i32(ids.astype(np.int32), oh,
+                                     ow).astype(ids.dtype)
 
 
 def _pred_at_gt_resolution(batch, pred_ids: np.ndarray, gt_key: str):

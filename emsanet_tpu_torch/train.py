@@ -1,6 +1,7 @@
 """Train and validate the port's EMSANet on one GPU.
 
-    python -m emsanet_tpu_torch.train --dataset synthetic --n-epochs 2 \\
+    python -m emsanet_tpu_torch.train --dataset nyuv2 \\
+        --dataset-path datasets/nyuv2 --n-epochs 500 \\
         --tasks semantic instance orientation scene --enable-panoptic \\
         --mixed-precision --fused-training --results-basepath /tmp/runs
 
@@ -26,10 +27,24 @@ continues a run from its checkpoint, `--weights-filepath` starts from a
 checkpoint's model weights. `--validation-on-train` with
 `--overfit-n-batches` validates on the overfit subset of the train data.
 
-Flags take `emsanet_tpu/utils/cli.py`'s names. Data is 'synthetic' only.
-Refused, with an error: `fused_inference=False` (the config), pretrained
-backbone files, `--visualize-validation` and wandb logging. It runs on
-the card unless `--device cpu` is given, and raises without one.
+Data: `--dataset` names one dataset or several joined by ':', each with
+an optional camera list ('sunrgbd[kv1,kv2]:nyuv2'), `--dataset-path` the
+prepared directories (one, or one per dataset); 'synthetic' needs none.
+The label tables come from the first dataset's `meta.json` where it has
+one. SUNRGB-D first among other datasets maps its classes 38-40 to void
+(`main.py`'s `sunrgbd_combined`). The semantic class weights are computed
+from the train data. Validation runs every camera's loader into one set
+of task helpers; `--validation-full-resolution` validates each sample at
+its own size, padded to a multiple of 32. `--*-encoder-backbone-
+pretrained-weights-filepath` initializes an encoder backbone from a
+torchvision ResNet file, and `--weights-filepath` loads a port
+checkpoint through the transfer rules of `weights.merge_loaded_params`
+(other class counts, tasks).
+
+Flags take `emsanet_tpu/utils/cli.py`'s names. Refused, with an error:
+`fused_inference=False` (the config), `--visualize-validation` and wandb
+logging. It runs on the card unless `--device cpu` is given, and raises
+without one.
 """
 
 from __future__ import annotations
@@ -58,7 +73,11 @@ from emsanet_tpu_torch.config import (
     validate_train_for_port,
 )
 from emsanet_tpu_torch.data import DataHelper, get_datahelper
-from emsanet_tpu_torch.datasets.metadata import get_dataset_config
+from emsanet_tpu_torch.datasets.metadata import DatasetConfig
+from emsanet_tpu_torch.datasets.registry import (
+    get_dataset_config,
+    parse_datasets,
+)
 from emsanet_tpu_torch.device import resolve_device
 from emsanet_tpu_torch.models.emsanet import build_train_model
 from emsanet_tpu_torch.preprocessing.transforms import get_preprocessor
@@ -76,8 +95,18 @@ from emsanet_tpu_torch.training.step import (
     make_eval_step,
     make_train_step,
 )
+from emsanet_tpu_torch.weights import (
+    load_backbone_pretrained,
+    load_weights_file,
+)
 
 EVAL_KEYS = ("rgb", "depth", "instance_foreground")  # the eval step's input
+
+
+def _subset_train(value: str):
+    """'0.2', or one fraction per concatenated dataset: '0.2:1.0'."""
+    parts = tuple(float(v) for v in value.split(":"))
+    return parts[0] if len(parts) == 1 else parts
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -98,8 +127,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rgb-encoder-backbone", default="resnet34")
     p.add_argument("--depth-encoder-backbone", default="resnet34")
     p.add_argument("--no-pretrained-backbone", action="store_true",
-                   help="the port starts from the reference's random "
-                   "initialization in any case")
+                   help="no effect, as in main.py: a backbone starts from "
+                   "pretrained weights exactly where a file is given")
     for what in ("", "rgb-", "depth-"):
         p.add_argument(f"--{what}encoder-backbone-pretrained-weights-"
                        "filepath", default=None)
@@ -142,12 +171,33 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--class-weighting", default=None, choices=weightings,
                    help="alias of --semantic-class-weighting; wins if given")
     p.add_argument("--dataset", default="nyuv2")
+    p.add_argument("--dataset-path", default=None)
+    p.add_argument("--split", default="train")
+    p.add_argument("--raw-depth", action="store_true")
+    p.add_argument("--use-original-scene-labels", action="store_true")
     p.add_argument("--synthetic-n-samples", type=int, default=16)
     p.add_argument("--aug-scale-min", type=float, default=1.0)
     p.add_argument("--aug-scale-max", type=float, default=1.4)
     p.add_argument("--no-color-flip-aug", dest="disable_color_flip_aug",
                    action="store_true")
     p.add_argument("--n-workers", type=int, default=8)
+    p.add_argument("--worker-mode", default="thread",
+                   choices=("thread", "process"))
+    p.add_argument("--subset-train", default=1.0, type=_subset_train)
+    p.add_argument("--subset-deterministic", action="store_true")
+    p.add_argument("--cache-dataset", action="store_true")
+    p.add_argument("--scannet-semantic-n-classes", type=int, default=40,
+                   choices=(20, 40, 200, 549))
+    p.add_argument("--scannet-subsample", type=int, default=50)
+    p.add_argument("--validation-scannet-subsample", type=int, default=100,
+                   choices=(50, 100, 200, 500))
+    p.add_argument("--hypersim-subsample", type=int, default=1)
+    p.add_argument("--validation-split", default="valid")
+    p.add_argument("--validation-input-height", type=int, default=None)
+    p.add_argument("--validation-input-width", type=int, default=None)
+    p.add_argument("--validation-full-resolution", action="store_true")
+    p.add_argument("--validation-scannet-benchmark-mode",
+                   action="store_true")
     p.add_argument("--n-devices", type=int, default=None)
     p.add_argument("--overfit-n-batches", type=int, default=-1)
     p.add_argument("--validation-on-train", action="store_true")
@@ -167,10 +217,6 @@ def parse_args(argv: Optional[Sequence[str]] = None
     """(validated configuration, device name, the argv parsed)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     a = build_parser().parse_args(argv)
-    for what in ("", "rgb_", "depth_"):
-        if getattr(a, f"{what}encoder_backbone_pretrained_weights_filepath"):
-            raise NotPortedError("not ported yet: pretrained backbone "
-                                 "weights (ROADMAP A4)")
     if a.wandb_mode != "disabled":
         raise NotPortedError("not ported yet: wandb logging")
     head_decode_fusion = a.head_decode_fusion or "decode"
@@ -191,12 +237,31 @@ def parse_args(argv: Optional[Sequence[str]] = None
         instance_center_sigma=a.instance_center_sigma,
         compute_dtype=a.compute_dtype, fused_training=a.fused_training,
         head_decode_fusion=head_decode_fusion,
+        **{f"{what}encoder_backbone_pretrained_weights_filepath": getattr(
+            a, f"{what}encoder_backbone_pretrained_weights_filepath")
+           for what in ("", "rgb_", "depth_")},
     )
     data = DataConfig(
-        dataset=a.dataset, batch_size=a.batch_size, n_workers=a.n_workers,
+        dataset=a.dataset, dataset_path=a.dataset_path, split=a.split,
+        validation_split=a.validation_split, raw_depth=a.raw_depth,
+        batch_size=a.batch_size, n_workers=a.n_workers,
+        worker_mode=a.worker_mode,
         validation_batch_size=a.validation_batch_size,
         aug_scale_min=a.aug_scale_min, aug_scale_max=a.aug_scale_max,
         disable_color_flip_aug=a.disable_color_flip_aug,
+        subset_train=a.subset_train,
+        subset_deterministic=a.subset_deterministic,
+        cache_dataset=a.cache_dataset,
+        scannet_semantic_n_classes=a.scannet_semantic_n_classes,
+        scannet_subsample=a.scannet_subsample,
+        validation_scannet_subsample=a.validation_scannet_subsample,
+        hypersim_subsample=a.hypersim_subsample,
+        use_original_scene_labels=a.use_original_scene_labels,
+        validation_scannet_benchmark_mode=(
+            a.validation_scannet_benchmark_mode),
+        validation_full_resolution=a.validation_full_resolution,
+        validation_input_height=a.validation_input_height,
+        validation_input_width=a.validation_input_width,
         class_weighting=a.class_weighting or a.semantic_class_weighting,
         synthetic_n_samples=a.synthetic_n_samples,
     )
@@ -237,6 +302,7 @@ class Run:
 
     cfg: EMSANetConfig
     device: torch.device
+    ds_config: DatasetConfig
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     class_weights: Optional[torch.Tensor]
@@ -251,23 +317,34 @@ def setup(cfg: EMSANetConfig, device=None) -> Run:
     optimizer, the train and eval steps and the data of a configuration."""
     dev = resolve_device(device)
     m, d, t = cfg.model, cfg.data, cfg.train
-    ds_config = get_dataset_config(d.dataset)
+    ds_config = get_dataset_config(d)
     data = get_datahelper(cfg)
+    names = [e["name"] for e in parse_datasets(d.dataset)]
+    sunrgbd_combined = names[0] == "sunrgbd" and any(
+        n in ("nyuv2", "hypersim", "scannet") for n in names[1:])
     data.set_train_preprocessor(get_preprocessor(
         cfg, ds_config, "train",
-        multiscale_downscales=m.side_output_downscales or None))
-    data.set_valid_preprocessor(get_preprocessor(cfg, ds_config, "test"))
+        multiscale_downscales=m.side_output_downscales or None,
+        sunrgbd_combined=sunrgbd_combined))
+    data.set_valid_preprocessor(get_preprocessor(
+        cfg, ds_config, "test", sunrgbd_combined=sunrgbd_combined))
     class_weights = None
     if "semantic" in m.tasks and d.class_weighting != "none":
         class_weights = torch.from_numpy(
             data.dataset_train.semantic_compute_class_weights(
                 weight_mode=d.class_weighting, c=d.class_weighting_c)).to(dev)
     model = build_train_model(m, ds_config, device=str(dev), seed=t.seed)
+    for mod in ("rgb", "depth"):
+        path = getattr(m, f"{mod}_encoder_backbone_pretrained_weights_filepath")
+        if path:
+            load_backbone_pretrained(model, path, mod,
+                                     getattr(m, f"{mod}_encoder_backbone"))
     optimizer = get_optimizer(model.parameters(), t)
     is_thing = torch.tensor(ds_config.classes_is_thing, device=dev)
     use_orientations = torch.tensor(ds_config.classes_use_orientations,
                                     device=dev)
-    return Run(cfg=cfg, device=dev, model=model, optimizer=optimizer,
+    return Run(cfg=cfg, device=dev, ds_config=ds_config, model=model,
+               optimizer=optimizer,
                class_weights=class_weights,
                train_step=make_train_step(model, cfg, optimizer,
                                           class_weights),
@@ -295,8 +372,7 @@ def run_validation(run: Run, epoch: int,
     helpers (`main.py:242-278`); returns the 'valid_'-prefixed logs and
     saves each helper's artifacts as `<name>_epoch_<epoch>.npy` into
     `artifacts_dir`, where given."""
-    helpers = get_task_helpers(run.cfg, get_dataset_config(
-        run.cfg.data.dataset))
+    helpers = get_task_helpers(run.cfg, run.ds_config)
     for th in helpers:
         th.initialize()
     for loader in run.data.valid_loaders.values():
@@ -370,7 +446,7 @@ def train(run: Run, run_dir: str) -> Optional[Dict[str, Any]]:
     artifacts_dir = os.path.join(run_dir, "artifacts")
     next_epoch = 0
     if t.weights_filepath:
-        load_checkpoint(t.weights_filepath, run.model)
+        load_weights_file(t.weights_filepath, run.model)
     if t.resume_ckpt_filepath:
         last_epoch, _ = load_checkpoint(t.resume_ckpt_filepath, run.model,
                                         run.optimizer)
@@ -440,6 +516,7 @@ def train(run: Run, run_dir: str) -> Optional[Dict[str, Any]]:
         raise
     finally:
         csv_logger.write()
+        run.data.close()
     with open(os.path.join(run_dir, "finished"), "w") as fh:
         fh.write("done\n")
     return logs

@@ -206,3 +206,169 @@ def reference_init_(model: nn.Module, seed: int) -> nn.Module:
             module.running_mean.zero_()
             module.running_var.fill_(1.0)
     return model
+
+
+# ---------------------------------------------------------------------------
+# Loading weights across configurations (the reference's transfer rules,
+# `emsanet_tpu/weights.py::merge_loaded_params`) and ImageNet-pretrained
+# backbones (`load_backbone_pretrained`), on the port's state dicts: a
+# name's '.'-separated parts are the flax path's, so the rules read the
+# same parts.
+
+
+def _is_semantic_head(parts) -> bool:
+    return "semantic_decoder" in parts and any("head_conv" in p
+                                               for p in parts)
+
+
+def _is_scene_head(parts) -> bool:
+    return "scene_decoder" in parts and "head" in parts
+
+
+def _output_axis(src_shape, tgt_shape):
+    """The one axis where two shapes differ (the class / channel axis)."""
+    if len(src_shape) != len(tgt_shape):
+        return None
+    diff = [i for i, (a, b) in enumerate(zip(src_shape, tgt_shape))
+            if a != b]
+    return diff[0] if len(diff) == 1 else None
+
+
+def merge_loaded_params(loaded: Mapping[str, torch.Tensor],
+                        target: Mapping[str, torch.Tensor],
+                        verbose: bool = True) -> Dict[str, torch.Tensor]:
+    """`target` (a state dict) with the tensors of `loaded` taken over by
+    the reference's rules: equal shapes are copied; names `target` lacks
+    are dropped; a scene head of another class count keeps its init; a
+    semantic head of 37 <-> 40 classes takes the shared first classes,
+    one of 40 -> 20 or 549 -> 200 (ScanNet benchmarks) the benchmark
+    classes' channels; an instance head with more channels (the
+    orientation task) is truncated; any other mismatch keeps the init."""
+    from emsanet_tpu_torch.datasets import scannet as scannet_meta
+
+    say = print if verbose else (lambda *a, **k: None)
+    out = dict(target)
+    for key, value in loaded.items():
+        if key not in target:
+            say(f"[weights] dropping extra key {key}")
+            continue
+        tgt = target[key]
+        if tuple(value.shape) == tuple(tgt.shape):
+            out[key] = value
+            continue
+        parts = tuple(key.split("."))
+        if _is_scene_head(parts):
+            say(f"[weights] skipping scene head {key}: "
+                f"{tuple(value.shape)} vs {tuple(tgt.shape)}")
+            continue
+        axis = _output_axis(value.shape, tgt.shape)
+        if _is_semantic_head(parts) and axis is not None:
+            n_src, n_tgt = value.shape[axis], tgt.shape[axis]
+            if (n_src, n_tgt) in ((40, 20), (549, 200)):
+                mapping = (
+                    scannet_meta.SEMANTIC_CLASSES_40_MAPPING_TO_BENCHMARK
+                    if n_src == 40 else
+                    scannet_meta.SEMANTIC_CLASSES_549_MAPPING_TO_BENCHMARK200)
+                keep = torch.tensor([c - 1 for c in range(1, n_src + 1)
+                                     if mapping[c] != 0])
+                out[key] = value.index_select(axis, keep)
+                say(f"[weights] scannet benchmark reduction for {key}: "
+                    f"{tuple(value.shape)} -> {tuple(out[key].shape)}")
+                continue
+            n_copy = min(n_src, n_tgt)
+            new = tgt.clone()
+            new.narrow(axis, 0, n_copy).copy_(value.narrow(axis, 0, n_copy))
+            say(f"[weights] reusing {n_copy}/{n_tgt} classes in {key}")
+            out[key] = new
+            continue
+        if "instance_decoder" in parts and axis is not None and (
+                value.shape[axis] > tgt.shape[axis]):
+            say(f"[weights] truncating {key} {tuple(value.shape)} -> "
+                f"{tuple(tgt.shape)}")
+            out[key] = value.narrow(axis, 0, tgt.shape[axis])
+            continue
+        say(f"[weights] shape mismatch for {key}: {tuple(value.shape)} vs "
+            f"{tuple(tgt.shape)}; keeping random init")
+    return out
+
+
+def load_weights_file(path: str, model: nn.Module,
+                      verbose: bool = True) -> nn.Module:
+    """The model weights of a port checkpoint (`training/checkpoint.py`)
+    into `model`, through `merge_loaded_params` (`--weights-filepath`)."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    target = model.state_dict()
+    merged = merge_loaded_params(payload["model"], target, verbose=verbose)
+    model.load_state_dict(merged, strict=True)
+    return model
+
+
+def resnet_torch_name_map(prefix: str, stage_blocks, bottleneck: bool =
+                          False) -> Dict[str, str]:
+    """torchvision ResNet state-dict names -> the port's backbone names
+    below `encoder.` (`<prefix>_stem`, `<prefix>_stage<i>.block<b>`)."""
+    m: Dict[str, str] = {}
+
+    def bn(torch_prefix, port_prefix):
+        for t_leaf, p_leaf in (("weight", "weight"), ("bias", "bias"),
+                               ("running_mean", "running_mean"),
+                               ("running_var", "running_var")):
+            m[f"{torch_prefix}.{t_leaf}"] = f"{port_prefix}.{p_leaf}"
+
+    m["conv1.weight"] = f"{prefix}_stem.Conv_0.weight"
+    bn("bn1", f"{prefix}_stem.Norm_0.BatchNorm_0")
+    for li, n_blocks in enumerate(stage_blocks):
+        for b in range(n_blocks):
+            t = f"layer{li + 1}.{b}"
+            f = f"{prefix}_stage{li}.block{b}"
+            convs = (("conv1", "ConvNormAct_0.Conv_0", "ConvNormAct_0.Norm_0"),
+                     ("conv2", "ConvNormAct_1.Conv_0", "ConvNormAct_1.Norm_0"),
+                     ("conv3", "Conv_0", "Norm_0")) if bottleneck else (
+                ("conv1", "ConvNormAct_0.Conv_0", "ConvNormAct_0.Norm_0"),
+                ("conv2", "Conv_0", "Norm_0"))
+            for i, (conv, port_conv, port_norm) in enumerate(convs, 1):
+                m[f"{t}.{conv}.weight"] = f"{f}.{port_conv}.weight"
+                bn(f"{t}.bn{i}", f"{f}.{port_norm}.BatchNorm_0")
+            m[f"{t}.downsample.0.weight"] = f"{f}.Conv_1.weight"
+            bn(f"{t}.downsample.1", f"{f}.Norm_1.BatchNorm_0")
+    return m
+
+
+@torch.no_grad()
+def load_backbone_pretrained(model: nn.Module, filepath: str, modality: str,
+                             backbone_name: str,
+                             verbose: bool = True) -> nn.Module:
+    """One encoder backbone from a torchvision ResNet file (a state dict,
+    or a dict holding one under 'state_dict'). Tensors of equal shape are
+    copied; the depth stem (1 input channel) takes conv1 summed over its
+    RGB channels; others are reported and skipped (an NBt1D backbone
+    takes only the stem, the downsampling blocks' convs and the norms
+    whose names it shares)."""
+    from emsanet_tpu_torch.models.backbone import STAGE_BLOCKS
+
+    raw = torch.load(filepath, map_location="cpu", weights_only=True)
+    if isinstance(raw, dict) and "state_dict" in raw:
+        raw = raw["state_dict"]
+    say = print if verbose else (lambda *a, **k: None)
+    own = model.state_dict()
+    name_map = resnet_torch_name_map(modality, STAGE_BLOCKS[backbone_name])
+    n_loaded = 0
+    for torch_name, port_name in name_map.items():
+        full = f"encoder.{port_name}"
+        if torch_name not in raw or full not in own:
+            continue
+        value, tgt = raw[torch_name], own[full]
+        if value.shape != tgt.shape:
+            if (value.ndim == 4 and full.endswith(".weight")
+                    and value.shape[1] == 3 and tgt.shape[1] == 1
+                    and value.shape[2:] == tgt.shape[2:]):
+                value = value.sum(dim=1, keepdim=True)  # depth stem
+            if value.shape != tgt.shape:
+                say(f"[weights] skip {full}: {tuple(value.shape)} vs "
+                    f"{tuple(tgt.shape)}")
+                continue
+        tgt.copy_(value.to(tgt.dtype))
+        n_loaded += 1
+    say(f"[weights] backbone '{modality}': loaded {n_loaded} tensors from "
+        f"{filepath}")
+    return model

@@ -1,8 +1,11 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX nor the JAX package, nor an image
+library.
 
 Parses every module of `emsanet_tpu_torch/` and `chip_smoke.py` with
 `ast` and fails on any `import` or `from ... import` of `jax`, `flax`,
-`optax` or `emsanet_tpu` (`emsanet_tpu_torch` is the port itself).
+`optax` or `emsanet_tpu` (`emsanet_tpu_torch` is the port itself), or of
+`PIL` or `cv2` (the card's machine has neither: the port reads PNG files
+itself, `datasets/png.py`).
 """
 
 import ast
@@ -11,7 +14,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "emsanet_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "emsanet_tpu", "PIL", "cv2")
 FILES = sorted((ROOT / "emsanet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -39,6 +42,7 @@ def test_port_module_imports_no_jax(path):
 def test_guard_sees_the_port():
     assert len(FILES) > 30
     tree = ast.parse("import jax.numpy as jnp\nfrom emsanet_tpu.ops import x\n"
-                     "from emsanet_tpu_torch import y\nimport flax, os\n")
+                     "from emsanet_tpu_torch import y\nimport flax, os\n"
+                     "from PIL import Image\nimport cv2\n")
     assert [n for _, n in _imports(tree) if _forbidden(n)] == [
-        "jax.numpy", "emsanet_tpu.ops", "flax"]
+        "jax.numpy", "emsanet_tpu.ops", "flax", "PIL", "cv2"]

@@ -24,7 +24,7 @@ from emsanet_tpu_torch import task_helper as th
 from emsanet_tpu_torch.config import NotPortedError
 from emsanet_tpu_torch.data import DataLoader
 from emsanet_tpu_torch.datasets.metadata import get_dataset_config
-from emsanet_tpu_torch.datasets.synthetic import get_dataset
+from emsanet_tpu_torch.datasets.registry import get_dataset
 from emsanet_tpu_torch.preprocessing.transforms import get_preprocessor
 
 TASKS = ("semantic", "instance", "orientation", "scene")

@@ -303,8 +303,8 @@ def test_validation_only_from_a_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--visualize-validation"],
-    ["--encoder-backbone-pretrained-weights-filepath", "x.pth"],
-    ["--rgb-encoder-backbone-pretrained-weights-filepath", "x.pth"],
+    ["--n-devices", "2"],
+    ["--wandb-mode", "online"],
     ["--wandb-mode", "offline"],
 ])
 def test_unported_flags_are_refused(flags):

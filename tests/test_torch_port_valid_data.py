@@ -2,10 +2,10 @@
 validation loaders, `get_datahelper`) against the JAX package's, on the
 CPU, bit for bit.
 
-The JAX side runs its numpy paths (its optional native library may
-differ in the last bit; the port copies the numpy). Sizes: 48x64
-synthetic samples, validated at the input size; the resize on its own
-from 48x64 to 32x48.
+Both sides run their native host libraries (the port's is a copy of
+the JAX package's, built with the same flags). Sizes: 48x64 synthetic
+samples, validated at the input size; the resize on its own from 48x64
+to 32x48.
 """
 
 import numpy as np
@@ -23,7 +23,7 @@ from emsanet_tpu.preprocessing import get_preprocessor as jax_preprocessor
 from emsanet_tpu_torch import config as pc
 from emsanet_tpu_torch import data
 from emsanet_tpu_torch.datasets.metadata import get_dataset_config
-from emsanet_tpu_torch.datasets.synthetic import get_dataset
+from emsanet_tpu_torch.datasets.registry import get_dataset
 from emsanet_tpu_torch.preprocessing.transforms import get_preprocessor
 
 H, W = 48, 64
@@ -31,9 +31,12 @@ TASKS = ("semantic", "instance", "orientation", "scene")
 
 
 @pytest.fixture(autouse=True)
-def no_native(monkeypatch):
-    monkeypatch.setattr(jax_native, "_LIB", None)
-    monkeypatch.setattr(jax_native, "_TRIED", True)
+def jax_native_path():
+    """The JAX package's native path: the port always takes its own host
+    library, a copy of the JAX package's built with the same flags, so
+    the two give the same bits."""
+    assert jax_native.get_lib() is not None, (
+        "the JAX package's native library is not available")
 
 
 def _cfgs(tasks=TASKS, n=6, batch_size=2, **train):
