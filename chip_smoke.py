@@ -148,6 +148,26 @@ Phases (any failure exits non-zero and prints no result):
      b2 model with two small cameras (96x128, 106x146) after 4 card steps
      is validated at full resolution on the card and the CPU: eval
      outputs and metrics within phase 8's limits.
+ 10. inference (`python -m emsanet_tpu_torch.{import_torch_checkpoint,
+     inference_samples,inference_dataset,inference_time}`): an
+     upstream-layout `.pth` of the flagship's seed-0 weights (the port's
+     names mapped back, 'model.' prefix, 'fused_encoders.' alias) goes
+     through the import tool in a subprocess and must come out bit for
+     bit; with it, the flagship (R34-NBt1D, 640x480, NYUv2's 40 classes,
+     every task, panoptic) runs sample inference on two Kinect-v2-style
+     pairs (480x640 and 540x960, depth in mm, some above --depth-max) in
+     f32 and with --mixed-precision (launch counters set to 0 just before
+     each run and read just after: kernels 1-5 and 8 must launch; panels
+     of (960, 2560, 3) uint8; host ms per sample and step logged), and
+     dataset inference over phase 9's PNG dataset (b8, bf16, 'auto' ->
+     decode-planes, every format, --inference-output-fullres; kernels 1-7
+     must launch; every file read back); an f32 sample and an f32 dataset
+     run under torch.profiler give the chain's share of the device time.
+     The small R18 96x128 f32 model runs both scripts on the card and on
+     the CPU on the same files (limits: tests/torch_inference_cases.py);
+     --visualize-validation must write the reference's 17 folders; the
+     timing script's sweep (b1, b8, b32 x bf16, f32; 3 warmup and 10
+     timed runs) is logged.
 
 Tolerances (error relative to the largest magnitude of the plain result
 unless stated): stem bf16 2e-2, f32 1e-4; NBt1D chain bf16 5e-2 (K
@@ -200,9 +220,11 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -989,9 +1011,15 @@ def run() -> int:
     # -- 8. validation ------------------------------------------------------
     torch.cuda.empty_cache()
     validation_report = validation_phase(torch, modules)
-    # -- 9. prepared datasets on disk ---------------------------------------
+    # -- 9. prepared datasets on disk, 10. the inference scripts ------------
     torch.cuda.empty_cache()
-    dataset_report = dataset_phase(torch, modules)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        dataset_report = dataset_phase(torch, modules, tmp)
+        torch.cuda.empty_cache()
+        inference_report = inference_phase(torch, modules, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": card, "frame_ms": frame_ms, "detail": detail,
                    "launches": launches, "errors": errors,
@@ -1004,7 +1032,8 @@ def run() -> int:
                    "lookup_cases": lookup_report,
                    "train": train_report,
                    "validation": validation_report,
-                   "dataset": dataset_report}, f, indent=1)
+                   "dataset": dataset_report,
+                   "inference": inference_report}, f, indent=1)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))
@@ -1122,8 +1151,6 @@ def validation_phase(torch, modules):
     launched; the trunk, 8, runs at batch <= 2 only), finite metrics, its
     ms per validation batch; a checkpoint saved and loaded on the card
     gives equal tensors."""
-    import tempfile
-
     from emsanet_tpu_torch import config as pc
     from emsanet_tpu_torch import train as trainer
     from emsanet_tpu_torch.training.checkpoint import (
@@ -1319,8 +1346,6 @@ def sass_mma_count(lib_path, kernel, inst):
     """Tensor-core instructions (TENSOR_CORE_OPS) in the SASS of the
     instantiation of `kernel` for `inst` in a built library
     (`cuobjdump -sass`)."""
-    import shutil
-
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -1591,8 +1616,6 @@ def trunk_phases(torch, trunk, args, tag, runs=5):
 def ptxas_logs(native, sources):
     """`ptxas -v`'s report of each source, compiled afresh to a cubin in a
     temporary directory (one nvcc each, all at once)."""
-    import tempfile
-
     flags = [f for f in native.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2406,8 +2429,10 @@ def _median_ms(fn, runs=7):
     return statistics.median(times)
 
 
-def dataset_phase(torch, modules):
-    """Phase 9: training and validation from prepared datasets on disk.
+def dataset_phase(torch, modules, tmp):
+    """Phase 9: training and validation from prepared datasets on disk,
+    written under `tmp` (`png/`, `packed/`, `small/`; phase 10 reads
+    them).
     (a) A 640x480 dataset written with the port's PNG writer, read back
     equal to the generator; its packed copy (`datasets/pack.py`); the
     loader's ms per b8 batch for thread and process workers on PNG and
@@ -2423,9 +2448,6 @@ def dataset_phase(torch, modules):
     cameras (96x128, 106x146), 4 card steps, then the eval outputs and
     the metrics of a full-resolution validation, card against CPU, under
     phase 8's limits."""
-    import shutil
-    import tempfile
-
     from emsanet_tpu_torch import train as trainer
     from emsanet_tpu_torch.datasets import pack
     from emsanet_tpu_torch.ops import nbt1d_train as tm
@@ -2436,157 +2458,452 @@ def dataset_phase(torch, modules):
     all_modules = {**modules, "nbt1d_train": tm, "semantic_train_head": hm}
     all_kernels = KERNELS + TRAIN_KERNELS
     report = {}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_dataset_")
-    try:
-        # (a) write, read back, pack, time the loader
-        t0 = time.perf_counter()
-        roots = {"png": os.path.join(tmp, "png"),
-                 "packed": os.path.join(tmp, "packed")}
-        written = write_prepared(roots["png"], DATASET_TRAIN,
-                                 DATASET_CAMERAS, DATASET_VALID_PER_CAMERA)
-        n = check_raw_samples(roots["png"], written)
-        shutil.copytree(roots["png"], roots["packed"])
-        for split in ("train", "test"):
-            pack.pack_split(roots["packed"], split)
-        n_packed = check_raw_samples(roots["packed"], written)
-        del written
-        log(f"[dataset] wrote {n} samples (PNG, {PNG_FILTER} row filters) "
-            f"and their packed copy in {time.perf_counter() - t0:.1f} s; "
-            f"read back equal to the generator: {n} PNG, {n_packed} packed")
-        flags = ["--dataset", "nyuv2", "--tasks", "semantic", "instance",
-                 "orientation", "scene", "--enable-panoptic",
-                 "--mixed-precision", "--fused-training", "--batch-size",
-                 "8", "--validation-batch-size", "8",
-                 "--head-decode-fusion", "auto", "--n-workers",
-                 str(LOADER_WORKERS), "--validation-force-interval", "1"]
-        cfg, _, _ = trainer.parse_args(flags + ["--dataset-path",
-                                                roots["png"]])
-        loader = loader_times(torch, roots, cfg)
-        log(f"[dataset] loader host ms per b8 batch (flagship train "
-            f"preprocessing, 640x480, 3 batches; files/workers/count), "
-            f"all equal bit for bit: " + json.dumps(
-                {k: round(v, 1) for k, v in loader.items()
-                 if isinstance(v, float)}))
-        log(f"[dataset] a loader worker process: "
-            f"{json.dumps(loader['worker_process'])}; PNG reader steps on "
-            f"one 480x640 RGB image ({loader['png_rgb_bytes']} bytes), ms: "
-            + json.dumps({k: round(v, 3) for k, v in
-                          loader["png_rgb_ms"].items()}))
-        report["loader_ms_per_b8_batch"] = loader
+    # (a) write, read back, pack, time the loader
+    t0 = time.perf_counter()
+    roots = {"png": os.path.join(tmp, "png"),
+             "packed": os.path.join(tmp, "packed")}
+    written = write_prepared(roots["png"], DATASET_TRAIN,
+                             DATASET_CAMERAS, DATASET_VALID_PER_CAMERA)
+    n = check_raw_samples(roots["png"], written)
+    shutil.copytree(roots["png"], roots["packed"])
+    for split in ("train", "test"):
+        pack.pack_split(roots["packed"], split)
+    n_packed = check_raw_samples(roots["packed"], written)
+    del written
+    log(f"[dataset] wrote {n} samples (PNG, {PNG_FILTER} row filters) "
+        f"and their packed copy in {time.perf_counter() - t0:.1f} s; "
+        f"read back equal to the generator: {n} PNG, {n_packed} packed")
+    flags = ["--dataset", "nyuv2", "--tasks", "semantic", "instance",
+             "orientation", "scene", "--enable-panoptic",
+             "--mixed-precision", "--fused-training", "--batch-size",
+             "8", "--validation-batch-size", "8",
+             "--head-decode-fusion", "auto", "--n-workers",
+             str(LOADER_WORKERS), "--validation-force-interval", "1"]
+    cfg, _, _ = trainer.parse_args(flags + ["--dataset-path",
+                                            roots["png"]])
+    loader = loader_times(torch, roots, cfg)
+    log(f"[dataset] loader host ms per b8 batch (flagship train "
+        f"preprocessing, 640x480, 3 batches; files/workers/count), "
+        f"all equal bit for bit: " + json.dumps(
+            {k: round(v, 1) for k, v in loader.items()
+             if isinstance(v, float)}))
+    log(f"[dataset] a loader worker process: "
+        f"{json.dumps(loader['worker_process'])}; PNG reader steps on "
+        f"one 480x640 RGB image ({loader['png_rgb_bytes']} bytes), ms: "
+        + json.dumps({k: round(v, 3) for k, v in
+                      loader["png_rgb_ms"].items()}))
+    report["loader_ms_per_b8_batch"] = loader
 
-        # (b) the flagship from disk, process workers
-        runs = os.path.join(tmp, "runs")
-        cfg, _, used = trainer.parse_args(flags + [
-            "--dataset-path", roots["png"], "--worker-mode", "process",
-            "--n-epochs", "2", "--results-basepath", runs])
-        t0 = time.perf_counter()
-        run = trainer.setup(cfg, "cuda")
-        run_dir = trainer.make_run_dir(cfg, used)
-        setup_s = time.perf_counter() - t0
-        reset_counts(all_modules, all_kernels)
-        t0 = time.perf_counter()
-        logs = trainer.train(run, run_dir)
-        torch.cuda.synchronize()
-        loop_s = time.perf_counter() - t0
-        launches = counts(all_modules, all_kernels)
-        need = (PATH_KERNELS["decode-planes"] - {"decoder_trunk"}) | {
-            name for name, *_ in TRAIN_KERNELS}
-        missing = sorted(k for k in need if launches[k] <= 0)
-        if missing:
-            raise AssertionError(f"[dataset] kernels {missing} were not "
-                                 "launched by the run from disk")
-        if not os.path.exists(os.path.join(run_dir, "finished")):
-            raise AssertionError("[dataset] the run from disk did not finish")
-        with open(os.path.join(run_dir, "metrics.csv")) as fh:
-            header, *rows = [r.split(",") for r in
-                             fh.read().strip().splitlines()]
-        epochs = [dict(zip(header, r)) for r in rows]
-        bad = [k for e in epochs for k, v in e.items()
-               if k.startswith(("train_", "valid_"))
-               and not math.isfinite(float(v))]
-        if len(epochs) != 2 or bad:
-            raise AssertionError(f"[dataset] metrics.csv: {len(epochs)} "
-                                 f"epochs, not finite: {bad}")
-        times = {k: [float(e[k]) for e in epochs]
-                 for k in ("time_train_s", "time_valid_s")}
-        log(f"[dataset] flagship R34 640x480 bf16 b8 from PNG files, process "
-            f"workers, 2 epochs of {len(run.data.train_loader)} steps, "
-            f"validating each over {list(run.data.valid_loaders)}: setup "
-            f"{setup_s:.1f} s, loop {loop_s:.1f} s (sanity check included); "
-            f"epoch s {times['time_train_s']}, validation s "
-            f"{times['time_valid_s']}; launches {json.dumps(launches)}; "
-            f"epoch 1 {json.dumps(logs)}")
-        report["flagship"] = {"setup_s": setup_s, "loop_s": loop_s,
-                              **times, "launches": launches,
-                              "epoch_1": logs}
-        ckpt = os.path.join(run_dir, "checkpoints", "ckpt_resume.pt")
-        del run
-        torch.cuda.empty_cache()
-        cfg, _, used = trainer.parse_args(flags + [
-            "--dataset-path", roots["packed"], "--validation-only",
-            "--validation-full-resolution", "--skip-sanity-check",
-            "--weights-filepath", ckpt, "--results-basepath", runs])
-        run = trainer.setup(cfg, "cuda")
-        shapes = sorted({tuple(b["rgb"].shape[1:3]) for loader in
-                         run.data.valid_loaders.values()
-                         for b in loader.batches(0)})
-        reset_counts(all_modules, all_kernels)
-        t0 = time.perf_counter()
-        valid = trainer.train(run, trainer.make_run_dir(cfg, used))
-        torch.cuda.synchronize()
-        valid_s = time.perf_counter() - t0
-        launches = counts(all_modules, all_kernels)
-        missing = sorted(k for k in PATH_KERNELS["decode-planes"]
-                         if k != "decoder_trunk" and launches[k] <= 0)
-        bad = [k for k, v in valid.items()
-               if isinstance(v, float) and not math.isfinite(v)]
-        if missing or bad or (544, 736) not in shapes:
-            raise AssertionError(f"[dataset] full-resolution validation: "
-                                 f"kernels {missing} not launched, not "
-                                 f"finite {bad}, shapes {shapes}")
-        log(f"[dataset] full-resolution validation from packed files "
-            f"(padded shapes {shapes}): {valid_s:.2f} s; launches "
-            f"{json.dumps(launches)}; {json.dumps(valid)}")
-        report["full_resolution"] = {"valid_s": valid_s, "shapes": shapes,
-                                     "launches": launches, "logs": valid}
-        del run
-        torch.cuda.empty_cache()
+    # (b) the flagship from disk, process workers
+    runs = os.path.join(tmp, "runs")
+    cfg, _, used = trainer.parse_args(flags + [
+        "--dataset-path", roots["png"], "--worker-mode", "process",
+        "--n-epochs", "2", "--results-basepath", runs])
+    t0 = time.perf_counter()
+    run = trainer.setup(cfg, "cuda")
+    run_dir = trainer.make_run_dir(cfg, used)
+    setup_s = time.perf_counter() - t0
+    reset_counts(all_modules, all_kernels)
+    t0 = time.perf_counter()
+    logs = trainer.train(run, run_dir)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = counts(all_modules, all_kernels)
+    need = (PATH_KERNELS["decode-planes"] - {"decoder_trunk"}) | {
+        name for name, *_ in TRAIN_KERNELS}
+    missing = sorted(k for k in need if launches[k] <= 0)
+    if missing:
+        raise AssertionError(f"[dataset] kernels {missing} were not "
+                             "launched by the run from disk")
+    if not os.path.exists(os.path.join(run_dir, "finished")):
+        raise AssertionError("[dataset] the run from disk did not finish")
+    with open(os.path.join(run_dir, "metrics.csv")) as fh:
+        header, *rows = [r.split(",") for r in
+                         fh.read().strip().splitlines()]
+    epochs = [dict(zip(header, r)) for r in rows]
+    bad = [k for e in epochs for k, v in e.items()
+           if k.startswith(("train_", "valid_"))
+           and not math.isfinite(float(v))]
+    if len(epochs) != 2 or bad:
+        raise AssertionError(f"[dataset] metrics.csv: {len(epochs)} "
+                             f"epochs, not finite: {bad}")
+    times = {k: [float(e[k]) for e in epochs]
+             for k in ("time_train_s", "time_valid_s")}
+    log(f"[dataset] flagship R34 640x480 bf16 b8 from PNG files, process "
+        f"workers, 2 epochs of {len(run.data.train_loader)} steps, "
+        f"validating each over {list(run.data.valid_loaders)}: setup "
+        f"{setup_s:.1f} s, loop {loop_s:.1f} s (sanity check included); "
+        f"epoch s {times['time_train_s']}, validation s "
+        f"{times['time_valid_s']}; launches {json.dumps(launches)}; "
+        f"epoch 1 {json.dumps(logs)}")
+    report["flagship"] = {"setup_s": setup_s, "loop_s": loop_s,
+                          **times, "launches": launches,
+                          "epoch_1": logs}
+    ckpt = os.path.join(run_dir, "checkpoints", "ckpt_resume.pt")
+    del run
+    torch.cuda.empty_cache()
+    cfg, _, used = trainer.parse_args(flags + [
+        "--dataset-path", roots["packed"], "--validation-only",
+        "--validation-full-resolution", "--skip-sanity-check",
+        "--weights-filepath", ckpt, "--results-basepath", runs])
+    run = trainer.setup(cfg, "cuda")
+    shapes = sorted({tuple(b["rgb"].shape[1:3]) for loader in
+                     run.data.valid_loaders.values()
+                     for b in loader.batches(0)})
+    reset_counts(all_modules, all_kernels)
+    t0 = time.perf_counter()
+    valid = trainer.train(run, trainer.make_run_dir(cfg, used))
+    torch.cuda.synchronize()
+    valid_s = time.perf_counter() - t0
+    launches = counts(all_modules, all_kernels)
+    missing = sorted(k for k in PATH_KERNELS["decode-planes"]
+                     if k != "decoder_trunk" and launches[k] <= 0)
+    bad = [k for k, v in valid.items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if missing or bad or (544, 736) not in shapes:
+        raise AssertionError(f"[dataset] full-resolution validation: "
+                             f"kernels {missing} not launched, not "
+                             f"finite {bad}, shapes {shapes}")
+    log(f"[dataset] full-resolution validation from packed files "
+        f"(padded shapes {shapes}): {valid_s:.2f} s; launches "
+        f"{json.dumps(launches)}; {json.dumps(valid)}")
+    report["full_resolution"] = {"valid_s": valid_s, "shapes": shapes,
+                                 "launches": launches, "logs": valid}
+    del run
+    torch.cuda.empty_cache()
 
-        # (c) card against CPU at full resolution, two cameras
-        small_root = os.path.join(tmp, "small")
-        write_prepared(small_root, 4, SMALL_CAMERAS, 2)
-        cfg, _, _ = trainer.parse_args([
-            "--dataset", "nyuv2", "--dataset-path", small_root, "--tasks",
-            "semantic", "instance", "orientation", "scene",
-            "--enable-panoptic", "--rgb-encoder-backbone", "resnet18",
-            "--depth-encoder-backbone", "resnet18", "--input-height", "96",
-            "--input-width", "128", "--fused-training", "--batch-size", "2",
-            "--validation-batch-size", "2", "--head-decode-fusion", "auto",
-            "--class-weighting", "none", "--n-workers", "4",
-            "--validation-full-resolution"])
-        card_run = trainer.setup(cfg, "cuda")
-        for epoch in range(2):
-            for i, batch in enumerate(
-                    card_run.data.train_loader.batches(epoch)):
-                card_run.train_step(
-                    extract_device_batch(batch, "cuda"),
-                    trainer.dropout_generator_for(0, epoch, i, "cuda"))
-        cpu_run = trainer.setup(cfg, "cpu")
-        cpu_run.model.load_state_dict({k: v.cpu() for k, v in
-                                       card_run.model.state_dict().items()})
-        outs = eval_outputs_card_vs_cpu(torch, trainer, card_run, cpu_run)
-        diffs = metrics_card_vs_cpu(trainer.run_validation(card_run, 0),
-                                    trainer.run_validation(cpu_run, 0),
-                                    "[dataset]")
-        log(f"[dataset] R18 f32 b2, cameras {list(card_run.data.valid_loaders)}"
-            f" at full resolution, card vs CPU after 4 card steps: eval "
-            f"outputs {json.dumps(outs)}; largest metric difference "
-            f"{max(diffs.values()):.3e} ({max(diffs, key=diffs.get)})")
-        report["card_vs_cpu"] = {"outputs": outs, "metric_diffs": diffs}
-        del card_run, cpu_run
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # (c) card against CPU at full resolution, two cameras
+    small_root = os.path.join(tmp, "small")
+    write_prepared(small_root, 4, SMALL_CAMERAS, 2)
+    cfg, _, _ = trainer.parse_args([
+        "--dataset", "nyuv2", "--dataset-path", small_root, "--tasks",
+        "semantic", "instance", "orientation", "scene",
+        "--enable-panoptic", "--rgb-encoder-backbone", "resnet18",
+        "--depth-encoder-backbone", "resnet18", "--input-height", "96",
+        "--input-width", "128", "--fused-training", "--batch-size", "2",
+        "--validation-batch-size", "2", "--head-decode-fusion", "auto",
+        "--class-weighting", "none", "--n-workers", "4",
+        "--validation-full-resolution"])
+    card_run = trainer.setup(cfg, "cuda")
+    for epoch in range(2):
+        for i, batch in enumerate(
+                card_run.data.train_loader.batches(epoch)):
+            card_run.train_step(
+                extract_device_batch(batch, "cuda"),
+                trainer.dropout_generator_for(0, epoch, i, "cuda"))
+    cpu_run = trainer.setup(cfg, "cpu")
+    cpu_run.model.load_state_dict({k: v.cpu() for k, v in
+                                   card_run.model.state_dict().items()})
+    outs = eval_outputs_card_vs_cpu(torch, trainer, card_run, cpu_run)
+    diffs = metrics_card_vs_cpu(trainer.run_validation(card_run, 0),
+                                trainer.run_validation(cpu_run, 0),
+                                "[dataset]")
+    log(f"[dataset] R18 f32 b2, cameras {list(card_run.data.valid_loaders)}"
+        f" at full resolution, card vs CPU after 4 card steps: eval "
+        f"outputs {json.dumps(outs)}; largest metric difference "
+        f"{max(diffs.values()):.3e} ({max(diffs, key=diffs.get)})")
+    report["card_vs_cpu"] = {"outputs": outs, "metric_diffs": diffs}
+    del card_run, cpu_run
     torch.set_grad_enabled(False)
+    return report
+
+
+# phase 10: the inference scripts. Kinect-v2-style sample pairs (the
+# second one is resized for the panel's RGB tile); the kernels each
+# script's run must launch: the b1 sample path 1-5 and the trunk (8,
+# 'auto' at batch 1), the b8 dataset path with 'auto' (-> decode-planes)
+# 1-7
+INFERENCE_SAMPLES = ((480, 640), (540, 960))
+SAMPLE_KERNELS = PATH_KERNELS["decode"]
+DATASET_KERNELS = PATH_KERNELS["decode-planes"] - {"decoder_trunk"}
+INFERENCE_TASKS = ("--tasks", "semantic", "instance", "orientation", "scene",
+                   "--enable-panoptic")
+TIMING_RUNS = ("--n-runs", "10", "--n-runs-warmup", "3")
+# what `--visualize-validation` writes per validation (the reference's
+# folders with every task and panoptic)
+VISUALIZATION_FOLDERS = {
+    "semantic", "semantic_score", "instance", "instance_center",
+    "instance_offset", "panoptic", "orientation", "orientations",
+    "orientations_white_bg", "scene", "gt_semantic", "gt_instance",
+    "gt_instance_center", "gt_panoptic", "gt_orientations",
+    "gt_orientations_white_bg", "gt_depth"}
+
+
+def upstream_checkpoint(torch, path):
+    """The flagship's seed-0 weights (R34-NBt1D, NYUv2's 40 classes and
+    scenes, f32, `weights.random_init_`) saved in the upstream layout:
+    the port's names mapped back through `torch_compat/name_map.py`,
+    'model.'-prefixed, the encoder under its 'fused_encoders.' alias, in
+    a {'state_dict': ...} wrapper. Returns the port's state dict."""
+    from emsanet_tpu_torch.config import flagship_config
+    from emsanet_tpu_torch.datasets.metadata import get_dataset_config
+    from emsanet_tpu_torch.models.emsanet import build_model
+    from emsanet_tpu_torch.torch_compat.name_map import (
+        emsanet_torch_name_map,
+    )
+
+    model = build_model(flagship_config(compute_dtype="float32"),
+                        get_dataset_config("nyuv2"), device="cpu", seed=0)
+    source = model.state_dict()
+    upstream_name = {p: t for t, p in emsanet_torch_name_map().items()}
+    upstream = {}
+    for key, value in source.items():
+        name = upstream_name[key]
+        if name.startswith("encoder."):
+            name = "fused_encoders." + name[len("encoder."):]
+        upstream["model." + name] = value.contiguous()
+    torch.save({"state_dict": upstream, "epoch": 0}, path)
+    return source
+
+
+def chain_share(rows):
+    """(chain device ms, device ms of the kernels, the five longest
+    kernels as 'name ms') of profiled rows; copies are left out."""
+    kernels = [r for r in rows if not r[2].startswith(("Memcpy", "Memset"))]
+    chain = sum(ms for ms, _, key in kernels if "nbt1d_pair" in key
+                or "conv3tap" in key or "splitk_epilogue" in key)
+    top = [f"{key[:48]} {ms:.3f}" for ms, _, key in kernels[:5]]
+    return chain, sum(ms for ms, _, _ in kernels), top
+
+
+def inference_phase(torch, modules, tmp):
+    """Phase 10: the inference scripts and the checkpoint import.
+    (a) An upstream-layout `.pth` of the flagship's seed-0 weights,
+    imported by `python -m emsanet_tpu_torch.import_torch_checkpoint`;
+    the imported tensors equal the source's bit for bit. (b) Sample
+    inference of the flagship (R34-NBt1D, 640x480, NYUv2's 40 classes,
+    every task, panoptic) with the imported weights on two sample pairs
+    (480x640; 540x960), in f32 and with `--mixed-precision`: host ms per
+    sample and step, launches (kernels 1-5 and 8 must launch), panels of
+    (960, 2560, 3) uint8; one more f32 run of the first pair under
+    torch.profiler for the f32 chain's share of the device time. (c)
+    Dataset inference of phase 9's PNG dataset (both cameras) at b8 in
+    bf16 with `--head-decode-fusion auto` (-> decode-planes), every
+    format, `--inference-output-fullres`: files, seconds, host ms per
+    batch; kernels 1-7 must launch; every file read back; one more f32
+    run (semantic files only) under torch.profiler for the chain's share.
+    (d) Both scripts with the small R18 96x128 f32 model (seeded random
+    weights, `build_model`) on the card and on the CPU, on the sample
+    pairs and phase 9's small dataset: outputs within
+    `tests/torch_inference_cases.py`'s limits. (e) `--visualize-
+    validation` for one validation of the small model: `epoch_0000`
+    holds every folder the reference writes. (f) `python -m
+    emsanet_tpu_torch.inference_time --sweep` (b1, b8, b32 x bf16, f32;
+    3 warmup and 10 timed runs): frames/s."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_inference_cases as cases
+
+    from emsanet_tpu_torch import inference_dataset, inference_samples
+    from emsanet_tpu_torch import inference_time
+    from emsanet_tpu_torch import train as trainer
+    from emsanet_tpu_torch.config import flagship_config
+    from emsanet_tpu_torch.datasets.metadata import get_dataset_config
+    from emsanet_tpu_torch.datasets.png import read_png
+    from emsanet_tpu_torch.models.emsanet import build_model
+    from emsanet_tpu_torch.training.checkpoint import save_checkpoint
+
+    report = {}
+    root = os.path.join(tmp, "inference")
+    t_phase = time.perf_counter()
+    # (a) the upstream checkpoint through the import tool
+    t0 = time.perf_counter()
+    pth = os.path.join(root, "upstream", "emsanet_r34.pth")
+    os.makedirs(os.path.dirname(pth))
+    source = upstream_checkpoint(torch, pth)
+    imported_dir = os.path.join(root, "imported")
+    res = subprocess.run(
+        [sys.executable, "-m", "emsanet_tpu_torch.import_torch_checkpoint",
+         pth, imported_dir, "--backbone", "resnet34", "--device", "cuda"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"[inference] import_torch_checkpoint exited "
+                             f"{res.returncode}: {res.stdout[-2000:]}"
+                             f"{res.stderr[-2000:]}")
+    imported = os.path.join(imported_dir, "imported_torch.pt")
+    saved = torch.load(imported, map_location="cpu",
+                       weights_only=True)["model"]
+    differ = [k for k, v in source.items() if not torch.equal(saved[k], v)]
+    if differ:
+        raise AssertionError(f"[inference] imported tensors differ from the "
+                             f"source: {differ[:5]}")
+    import_s = time.perf_counter() - t0
+    log(f"[inference] upstream checkpoint of the flagship's seed-0 weights "
+        f"({len(source)} tensors) imported by python -m "
+        f"emsanet_tpu_torch.import_torch_checkpoint in {import_s:.1f} s "
+        f"(`{res.stdout.strip().splitlines()[0]}`): every tensor equal, bit "
+        "for bit")
+    report["import"] = {"seconds": import_s, "tensors": len(source)}
+    del source, saved
+
+    # (b) sample inference of the flagship
+    samples = os.path.join(root, "samples")
+    names = cases.write_samples(samples, INFERENCE_SAMPLES)
+    flags = ["--device", "cuda", "--dataset", "nyuv2", *INFERENCE_TASKS,
+             "--raw-depth", "--depth-max", "8000", "--weights-filepath",
+             imported, "--sample-path", samples]
+    report["samples"] = {}
+    for label, extra in (("f32", []), ("bf16", ["--mixed-precision"])):
+        out = os.path.join(root, f"panels_{label}")
+        torch.cuda.synchronize()
+        reset_counts(modules)
+        t0 = time.perf_counter()
+        runs = inference_samples.run(flags + extra + ["--output-path", out])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counts(modules)
+        missing = sorted(k for k in SAMPLE_KERNELS if launches[k] <= 0)
+        if missing:
+            raise AssertionError(f"[inference] samples {label}: kernels "
+                                 f"{missing} were not launched")
+        for name in names:
+            cases.panel_tiles(read_png(os.path.join(out,
+                                                    f"result_{name}.png")),
+                              480, 640)
+        log(f"[inference] samples, flagship R34 640x480 {label} b1, "
+            f"{len(runs)} samples in {seconds:.2f} s (model build and "
+            f"weights included); host ms per sample: " + "; ".join(
+                f"{r['name']} " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in r["ms"].items())
+                for r in runs)
+            + f"; {runs[0]['scene']}; launches {json.dumps(launches)}")
+        report["samples"][label] = {"seconds": seconds, "launches": launches,
+                                    "ms": [r["ms"] for r in runs]}
+    one = os.path.join(root, "one_sample")
+    os.makedirs(one)
+    for suffix in ("rgb", "depth"):
+        shutil.copy(os.path.join(samples, f"{names[0]}_{suffix}.png"), one)
+    flags_one = [f if f != samples else one for f in flags]
+    wall_ms, rows = profile_frame(
+        lambda _: inference_samples.run(flags_one + [
+            "--output-path", os.path.join(root, "panels_profiled")]), None)
+    chain_ms, kernel_ms, top = chain_share(rows)
+    log(f"[inference] f32 sample (480x640) under torch.profiler: device "
+        f"kernels {kernel_ms:.3f} ms, of which the chain {chain_ms:.3f} ms "
+        f"({100 * chain_ms / max(kernel_ms, 1e-9):.1f}%); the run's wall "
+        f"{wall_ms:.1f} ms (model build included); top kernels (ms): "
+        f"{', '.join(top)}")
+    report["samples"]["f32_profile"] = {"kernel_ms": kernel_ms,
+                                        "chain_ms": chain_ms, "top": top}
+
+    # (c) dataset inference over phase 9's PNG dataset
+    dflags = ["--device", "cuda", "--dataset", "nyuv2", "--dataset-path",
+              os.path.join(tmp, "png"), *INFERENCE_TASKS, "--raw-depth",
+              "--weights-filepath", imported, "--batch-size", "8",
+              "--validation-batch-size", "8", "--head-decode-fusion", "auto",
+              "--n-workers", str(LOADER_WORKERS)]
+    out = os.path.join(root, "dataset_bf16")
+    torch.cuda.synchronize()
+    reset_counts(modules)
+    t0 = time.perf_counter()
+    meta = inference_dataset.run(dflags + [
+        "--mixed-precision", "--inference-output-path", out,
+        "--inference-output-format", *inference_dataset.FORMATS,
+        "--inference-output-fullres"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts(modules)
+    missing = sorted(k for k in DATASET_KERNELS if launches[k] <= 0)
+    mode = meta["config"]["model"]["head_decode_fusion"]
+    if missing or mode != "decode-planes":
+        raise AssertionError(f"[inference] dataset: kernels {missing} were "
+                             f"not launched (mode {mode})")
+    files = cases.read_back(out)
+    if files.get("semantic") != meta["n_samples"] or meta["n_samples"] != (
+            len(DATASET_CAMERAS) * DATASET_VALID_PER_CAMERA):
+        raise AssertionError(f"[inference] dataset: {meta['n_samples']} "
+                             f"samples, files {files}")
+    log(f"[inference] dataset, flagship bf16 b8 decode-planes, "
+        f"{meta['n_samples']} samples of 2 cameras at full resolution, "
+        f"every format: {seconds:.2f} s (model build included), files read "
+        f"back {json.dumps(files)}; host ms per batch: eval step to host "
+        f"{[round(1e3 * v, 1) for v in meta['batch_s']]}, writers "
+        f"{[round(1e3 * v, 1) for v in meta['write_s']]}; launches "
+        f"{json.dumps(launches)}")
+    report["dataset"] = {"seconds": seconds, "files": files,
+                         "launches": launches, "batch_s": meta["batch_s"],
+                         "write_s": meta["write_s"]}
+    box = {}
+    wall_ms, rows = profile_frame(lambda _: box.setdefault(
+        "meta", inference_dataset.run(dflags + [
+            "--inference-output-path", os.path.join(root, "dataset_f32")])),
+        None)
+    chain_ms, kernel_ms, top = chain_share(rows)
+    n_batches = len(box["meta"]["batch_s"])
+    log(f"[inference] dataset f32 (semantic files) under torch.profiler: "
+        f"{n_batches} b8 batches, device kernels {kernel_ms:.3f} ms, of "
+        f"which the chain {chain_ms:.3f} ms "
+        f"({100 * chain_ms / max(kernel_ms, 1e-9):.1f}%); host ms per batch "
+        f"{[round(1e3 * v, 1) for v in box['meta']['batch_s']]} (profiled); "
+        f"top kernels (ms): {', '.join(top)}")
+    report["dataset"]["f32_profile"] = {
+        "kernel_ms": kernel_ms, "chain_ms": chain_ms, "batches": n_batches,
+        "batch_s": box["meta"]["batch_s"], "top": top}
+
+    # (d) the small model, card against CPU
+    small = os.path.join(tmp, "small")
+    ckpt = os.path.join(root, "small.pt")
+    save_checkpoint(ckpt, build_model(flagship_config(
+        input_height=96, input_width=128, rgb_encoder_backbone="resnet18",
+        depth_encoder_backbone="resnet18", compute_dtype="float32"),
+        get_dataset_config("synthetic"), device="cpu", seed=0), None, 0)
+    panels, trees = {}, {}
+    for device in ("cuda", "cpu"):
+        sflags = ["--device", device, "--dataset", "nyuv2", "--dataset-path",
+                  small, *cases.SMALL_FLAGS, "--raw-depth", "--n-workers",
+                  "4", "--weights-filepath", ckpt]
+        panels[device] = os.path.join(root, f"small_panels_{device}")
+        inference_samples.run(sflags + [
+            "--sample-path", samples, "--depth-max", "8000",
+            "--output-path", panels[device]])
+        trees[device] = os.path.join(root, f"small_dataset_{device}")
+        inference_dataset.run(sflags + [
+            "--batch-size", "2", "--head-decode-fusion", "auto",
+            "--inference-output-path", trees[device],
+            "--inference-output-format", *inference_dataset.FORMATS,
+            "--inference-output-fullres"])
+    tiles = cases.compare_panels(panels["cuda"], panels["cpu"], names, 96,
+                                 128)
+    tree = cases.compare_dataset_outputs(trees["cuda"], trees["cpu"])
+    log(f"[inference] R18 96x128 f32, card vs CPU: panel tiles (share of "
+        f"pixels off by more than {cases.TILE_LEVELS} level) "
+        f"{json.dumps(tiles)}; dataset outputs {json.dumps(tree)}")
+    report["card_vs_cpu"] = {"tiles": tiles, "dataset": tree}
+
+    # (e) --visualize-validation
+    runs_dir = os.path.join(root, "runs")
+    trainer.main(["--device", "cuda", "--dataset", "nyuv2",
+                  "--dataset-path", small, *cases.SMALL_FLAGS,
+                  "--batch-size", "2", "--validation-batch-size", "2",
+                  "--n-workers", "4", "--validation-only",
+                  "--skip-sanity-check", "--visualize-validation",
+                  "--weights-filepath", ckpt, "--results-basepath",
+                  runs_dir])
+    (run_dir,) = os.listdir(os.path.join(runs_dir, "nyuv2"))
+    epoch_dir = os.path.join(runs_dir, "nyuv2", run_dir, "examples",
+                             "epoch_0000")
+    folders = set(os.listdir(epoch_dir))
+    if folders != VISUALIZATION_FOLDERS:
+        raise AssertionError(f"[inference] --visualize-validation wrote "
+                             f"{sorted(folders)}")
+    n_files = sum(len(fs) for _, _, fs in os.walk(epoch_dir))
+    log(f"[inference] --visualize-validation: epoch_0000 holds the "
+        f"reference's {len(folders)} folders ({n_files} files)")
+    report["visualize_validation"] = {"folders": len(folders),
+                                      "files": n_files}
+
+    # (f) inference_time --sweep
+    rows = inference_time.run(["--device", "cuda", *INFERENCE_TASKS,
+                               "--sweep", *TIMING_RUNS])
+    log("[inference] inference_time --sweep (flagship 640x480, forward, "
+        "3 warmup + 10 timed runs), frames/s: " + "; ".join(
+            f"b{r['batch_size']} {r['dtype']} {r['fps_mean']:.2f} +- "
+            f"{r['fps_std']:.2f} ({r['latency_ms']:.2f} ms, "
+            f"{r['head_decode_fusion']})" for r in rows))
+    report["timing"] = rows
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[inference] phase {report['seconds']:.1f} s")
     return report
 
 

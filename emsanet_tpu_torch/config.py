@@ -208,6 +208,7 @@ class TrainConfig:
     skip_sanity_check: bool = False
     validation_only: bool = False
     visualize_validation: bool = False
+    visualization_output_path: Optional[str] = None
     results_basepath: str = "./results"
     seed: int = 0
     n_devices: Optional[int] = None
@@ -342,8 +343,6 @@ def validate_train_for_port(cfg: EMSANetConfig) -> EMSANetConfig:
     d, t = cfg.data, cfg.train
     if (t.n_devices or 1) > 1:
         _refuse(f"n_devices={t.n_devices} (data parallel training)")
-    if t.visualize_validation:
-        _refuse("visualize_validation (the visualization module)")
     if t.optimizer not in KNOWN_OPTIMIZERS:
         raise ValueError(f"Unknown optimizer: '{t.optimizer}'")
     if t.learning_rate_scheduler != "onecycle":

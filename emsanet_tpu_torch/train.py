@@ -7,12 +7,12 @@
 
 Counterpart of the repository's `main.py` (:78-425). A run directory
 `<results-basepath>/<dataset>/run_<timestamp>/` gets `args.json`,
-`argsv.txt`, `checkpoints/`, `artifacts/` (each helper's artifacts per
-validation, as `.npy`), `metrics.csv` (one row per epoch), `error.log`
-and an error checkpoint when an epoch raises, and a `finished` marker at
-the end. Before training, one step runs on a copy of the model and the
-optimizer (the sanity check; `--skip-sanity-check` skips it). Each epoch
-sets the OneCycle learning rate, trains (a dropout generator per step,
+`argsv.txt`, `checkpoints/`, `examples/`, `artifacts/` (each helper's
+artifacts per validation, as `.npy`), `metrics.csv` (one row per
+epoch), `error.log` and an error checkpoint when an epoch raises, and a
+`finished` marker at the end. Before training, one step runs on a copy
+of the model and the optimizer (the sanity check; `--skip-sanity-check`
+skips it). Each epoch sets the OneCycle learning rate, trains (a dropout generator per step,
 seeded from (seed + 1, epoch * 100003 + step)), validates where
 `main.py`'s rule says so (from `--validation-skip` x epochs on, every
 `--validation-force-interval` epochs, and at the last), keeps a
@@ -38,13 +38,16 @@ of task helpers; `--validation-full-resolution` validates each sample at
 its own size, padded to a multiple of 32. `--*-encoder-backbone-
 pretrained-weights-filepath` initializes an encoder backbone from a
 torchvision ResNet file, and `--weights-filepath` loads a port
-checkpoint through the transfer rules of `weights.merge_loaded_params`
-(other class counts, tasks).
+checkpoint or a JAX package checkpoint through the transfer rules of
+`weights.merge_loaded_params` (other class counts, tasks).
+
+`--visualize-validation` draws the first validation batch's predictions
+and ground truth into `examples/epoch_XXXX/` (or
+`--visualization-output-path`), as `main.py` does.
 
 Flags take `emsanet_tpu/utils/cli.py`'s names. Refused, with an error:
-`fused_inference=False` (the config), `--visualize-validation` and wandb
-logging. It runs on the card unless `--device cpu` is given, and raises
-without one.
+`fused_inference=False` (the config) and wandb logging. It runs on the
+card unless `--device cpu` is given, and raises without one.
 """
 
 from __future__ import annotations
@@ -95,6 +98,11 @@ from emsanet_tpu_torch.training.step import (
     make_eval_step,
     make_train_step,
 )
+from emsanet_tpu_torch.visualization import (
+    ColorGenerators,
+    visualize_batches,
+    visualize_predictions,
+)
 from emsanet_tpu_torch.weights import (
     load_backbone_pretrained,
     load_weights_file,
@@ -117,6 +125,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--skip-sanity-check", action="store_true")
     p.add_argument("--validation-only", action="store_true")
     p.add_argument("--visualize-validation", action="store_true")
+    p.add_argument("--visualization-output-path", default=None,
+                   help="where --visualize-validation writes (default: "
+                   "the run directory's examples/)")
     p.add_argument("--wandb-mode", default="disabled",
                    choices=("online", "offline", "disabled"))
     p.add_argument("--tasks", nargs="+", default=("semantic",))
@@ -217,6 +228,12 @@ def parse_args(argv: Optional[Sequence[str]] = None
     """(validated configuration, device name, the argv parsed)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     a = build_parser().parse_args(argv)
+    return config_from_args(a), a.device, argv
+
+
+def config_from_args(a: argparse.Namespace) -> EMSANetConfig:
+    """The validated configuration of `build_parser`'s flags (the
+    inference scripts parse them too, beside their own)."""
     if a.wandb_mode != "disabled":
         raise NotPortedError("not ported yet: wandb logging")
     head_decode_fusion = a.head_decode_fusion or "decode"
@@ -289,11 +306,12 @@ def parse_args(argv: Optional[Sequence[str]] = None
         skip_sanity_check=a.skip_sanity_check,
         validation_only=a.validation_only,
         visualize_validation=a.visualize_validation,
+        visualization_output_path=a.visualization_output_path,
         results_basepath=a.results_basepath,
         seed=a.seed, n_devices=a.n_devices, mixed_precision=a.mixed_precision,
     )
-    cfg = EMSANetConfig(model=model, data=data, train=train)
-    return validate_train_for_port(cfg), a.device, argv
+    return validate_train_for_port(
+        EMSANetConfig(model=model, data=data, train=train))
 
 
 @dataclasses.dataclass
@@ -310,6 +328,8 @@ class Run:
     eval_step: Any
     data: DataHelper
     lr_fn: Any
+    # the colour generators `--visualize-validation` shares across epochs
+    colors: Optional[ColorGenerators] = None
 
 
 def setup(cfg: EMSANetConfig, device=None) -> Run:
@@ -350,7 +370,9 @@ def setup(cfg: EMSANetConfig, device=None) -> Run:
                                           class_weights),
                eval_step=make_eval_step(model, cfg, is_thing,
                                         use_orientations=use_orientations),
-               data=data, lr_fn=get_lr_fn(t))
+               data=data, lr_fn=get_lr_fn(t),
+               colors=(ColorGenerators.for_dataset(ds_config)
+                       if t.visualize_validation else None))
 
 
 def dropout_generator_for(seed: int, epoch: int, step: int,
@@ -367,23 +389,35 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def run_validation(run: Run, epoch: int,
-                   artifacts_dir: Optional[str] = None) -> Dict[str, float]:
+                   artifacts_dir: Optional[str] = None,
+                   examples_dir: Optional[str] = None) -> Dict[str, float]:
     """Every validation loader through the eval step and the task
     helpers (`main.py:242-278`); returns the 'valid_'-prefixed logs and
     saves each helper's artifacts as `<name>_epoch_<epoch>.npy` into
-    `artifacts_dir`, where given."""
+    `artifacts_dir`, where given. With `--visualize-validation`, the
+    first batch's predictions and ground truth are drawn into
+    `<examples_dir>/epoch_<epoch:04d>/` (`main.py:260-267`)."""
     helpers = get_task_helpers(run.cfg, run.ds_config)
     for th in helpers:
         th.initialize()
+    n_batches = 0
     for loader in run.data.valid_loaders.values():
         for batch in loader.batches(0):
             preds = run.eval_step({
                 k: torch.from_numpy(batch[k]).to(run.device)
                 for k in EVAL_KEYS if k in batch})
-            preds = {k: _host(preds[k]) for k in PREDICTION_KEYS
-                     if k in preds}
+            draw = (run.colors is not None and examples_dir is not None
+                    and n_batches == 0)
+            preds = {k: _host(v) for k, v in preds.items()
+                     if draw or k in PREDICTION_KEYS}
             for th in helpers:
                 th.validation_step(batch, preds)
+            if draw:
+                out = os.path.join(examples_dir, f"epoch_{epoch:04d}")
+                visualize_predictions(preds, batch, out, run.ds_config,
+                                      run.colors)
+                visualize_batches(batch, out, run.ds_config, run.colors)
+            n_batches += 1
     logs: Dict[str, float] = {}
     for th in helpers:
         artifacts, th_logs = th.validation_epoch_end()
@@ -412,11 +446,12 @@ def sanity_check(run: Run) -> float:
 
 def make_run_dir(cfg: EMSANetConfig, argv: Sequence[str]) -> str:
     """`<results_basepath>/<dataset>/run_<timestamp>/` with its
-    `checkpoints/` and `artifacts/`, `args.json` and `argsv.txt`."""
+    `checkpoints/`, `artifacts/` and `examples/`, `args.json` and
+    `argsv.txt`."""
     dataset = cfg.data.dataset.split(":")[0].split("[")[0]
     ts = datetime.datetime.now().strftime("%Y_%m_%d-%H_%M_%S-%f")
     run_dir = os.path.join(cfg.train.results_basepath, dataset, f"run_{ts}")
-    for sub in ("checkpoints", "artifacts"):
+    for sub in ("checkpoints", "artifacts", "examples"):
         os.makedirs(os.path.join(run_dir, sub), exist_ok=True)
     fields = dataclasses.asdict(cfg)
     fields.pop("_validated", None)
@@ -444,6 +479,8 @@ def train(run: Run, run_dir: str) -> Optional[Dict[str, Any]]:
     cfg, t = run.cfg, run.cfg.train
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     artifacts_dir = os.path.join(run_dir, "artifacts")
+    examples_dir = t.visualization_output_path or os.path.join(run_dir,
+                                                               "examples")
     next_epoch = 0
     if t.weights_filepath:
         load_weights_file(t.weights_filepath, run.model)
@@ -456,7 +493,7 @@ def train(run: Run, run_dir: str) -> Optional[Dict[str, Any]]:
               flush=True)
     csv_logger = CSVLogger(os.path.join(run_dir, "metrics.csv"))
     if t.validation_only:
-        logs = run_validation(run, next_epoch, artifacts_dir)
+        logs = run_validation(run, next_epoch, artifacts_dir, examples_dir)
         print(json.dumps(logs), flush=True)
         csv_logger.log({"epoch": next_epoch, **logs})
         return logs
@@ -483,7 +520,8 @@ def train(run: Run, run_dir: str) -> Optional[Dict[str, Any]]:
                     or (epoch + 1) % t.validation_force_interval == 0
                     or epoch == n_epochs - 1):
                 t1 = time.time()
-                logs.update(run_validation(run, epoch, artifacts_dir))
+                logs.update(run_validation(run, epoch, artifacts_dir,
+                                           examples_dir))
                 logs["time_valid_s"] = round(time.time() - t1, 2)
                 improved = checkpoint_helper.check_for_checkpoint(
                     {k.replace("valid_", ""): v for k, v in logs.items()

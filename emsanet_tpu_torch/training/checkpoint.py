@@ -7,8 +7,10 @@ file in the target directory and moved into place with `os.replace`, so
 a reader never sees a half-written checkpoint. The trainer names its
 files as `main.py` does, with the suffix `.pt`: `ckpt_<metric>_best.pt`
 or `ckpt_<metric>_epoch_<epoch>.pt`, `ckpt_resume.pt` and
-`ckpt_error__epoch_<epoch>.pt`. Reading the JAX package's `.msgpack`
-checkpoints is not ported. `CheckpointHelper` and `_direction` are
+`ckpt_error__epoch_<epoch>.pt`. The JAX package's checkpoints give
+their weights through `weights.load_weights_file` (`jax_checkpoint.py`);
+`load_checkpoint` refuses them, since their optimizer state does not
+carry over. `CheckpointHelper` and `_direction` are
 copied as they stand: metrics combine with '+', and a name holding
 'mae', 'rmse' or 'loss' is better lower.
 """
@@ -50,6 +52,13 @@ def load_checkpoint(path: str, model: torch.nn.Module,
                     ) -> Tuple[int, Dict[str, Any]]:
     """Load a checkpoint into `model` (and `optimizer`, where given) on
     the model's device; returns (epoch, logs)."""
+    from emsanet_tpu_torch.training import jax_checkpoint
+
+    if jax_checkpoint.is_jax_checkpoint(path):
+        raise ValueError(
+            f"{path} is a JAX package checkpoint: its optimizer state does "
+            "not carry over, so it cannot resume a run; pass it as "
+            "--weights-filepath to start from its weights")
     device = next(model.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=True)
     model.load_state_dict(payload["model"])

@@ -21,7 +21,7 @@ of the wrong shape.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -294,13 +294,43 @@ def merge_loaded_params(loaded: Mapping[str, torch.Tensor],
 
 def load_weights_file(path: str, model: nn.Module,
                       verbose: bool = True) -> nn.Module:
-    """The model weights of a port checkpoint (`training/checkpoint.py`)
-    into `model`, through `merge_loaded_params` (`--weights-filepath`)."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    """The model weights of a checkpoint into `model`, through
+    `merge_loaded_params` (`--weights-filepath`): a port checkpoint
+    (`training/checkpoint.py`, also what `import_torch_checkpoint.py`
+    writes), or, by its magic bytes, a JAX package checkpoint
+    (`training/jax_checkpoint.py`: its params and batch stats)."""
+    from emsanet_tpu_torch.training import jax_checkpoint
+
+    if jax_checkpoint.is_jax_checkpoint(path):
+        loaded = flax_to_state_dict(jax_checkpoint.read_variables(path))
+    else:
+        loaded = torch.load(path, map_location="cpu",
+                            weights_only=True)["model"]
     target = model.state_dict()
-    merged = merge_loaded_params(payload["model"], target, verbose=verbose)
+    merged = merge_loaded_params(loaded, target, verbose=verbose)
     model.load_state_dict(merged, strict=True)
     return model
+
+
+def convert_torch_state_dict(state_dict: Mapping[str, torch.Tensor],
+                             name_map: Mapping[str, str]
+                             ) -> Tuple[Dict[str, torch.Tensor], list]:
+    """An upstream torch state dict under the port's names:
+    ({port key: tensor}, the torch keys the map does not know, without
+    `num_batches_tracked`). `name_map`: `torch_compat.name_map.
+    emsanet_torch_name_map`. Tensors cross unchanged (both OIHW), as
+    float32 copies."""
+    out: Dict[str, torch.Tensor] = {}
+    unmatched = []
+    for key, value in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        port_key = name_map.get(key)
+        if port_key is None:
+            unmatched.append(key)
+            continue
+        out[port_key] = value.detach().to("cpu", torch.float32).clone()
+    return out, unmatched
 
 
 def resnet_torch_name_map(prefix: str, stage_blocks, bottleneck: bool =

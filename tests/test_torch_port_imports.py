@@ -4,8 +4,10 @@ library.
 Parses every module of `emsanet_tpu_torch/` and `chip_smoke.py` with
 `ast` and fails on any `import` or `from ... import` of `jax`, `flax`,
 `optax` or `emsanet_tpu` (`emsanet_tpu_torch` is the port itself), or of
-`PIL` or `cv2` (the card's machine has neither: the port reads PNG files
-itself, `datasets/png.py`).
+`PIL`, `cv2`, `matplotlib` or `msgpack` (the card's machine has none of
+them: the port reads and writes PNG files itself, `datasets/png.py`,
+resizes and draws with numpy, `imaging.py`, and decodes the JAX
+package's checkpoints itself, `training/jax_checkpoint.py`).
 """
 
 import ast
@@ -14,7 +16,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "emsanet_tpu", "PIL", "cv2")
+FORBIDDEN = ("jax", "flax", "optax", "emsanet_tpu", "PIL", "cv2",
+             "matplotlib", "msgpack")
 FILES = sorted((ROOT / "emsanet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -43,6 +46,8 @@ def test_guard_sees_the_port():
     assert len(FILES) > 30
     tree = ast.parse("import jax.numpy as jnp\nfrom emsanet_tpu.ops import x\n"
                      "from emsanet_tpu_torch import y\nimport flax, os\n"
-                     "from PIL import Image\nimport cv2\n")
+                     "from PIL import Image\nimport cv2\n"
+                     "import matplotlib.pyplot as plt\nimport msgpack\n")
     assert [n for _, n in _imports(tree) if _forbidden(n)] == [
-        "jax.numpy", "emsanet_tpu.ops", "flax", "PIL", "cv2"]
+        "jax.numpy", "emsanet_tpu.ops", "flax", "PIL", "cv2",
+        "matplotlib.pyplot", "msgpack"]

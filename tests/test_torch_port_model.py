@@ -382,7 +382,7 @@ def test_config_refuses_what_is_not_ported(override):
     ("model", {"tasks": ("semantic", "instance", "normal")}, "normal"),
     ("model", {"rgb_encoder_backbone": "resnet50"}, "resnet50"),
     ("train", {"n_devices": 2}, "n_devices"),
-    ("train", {"visualize_validation": True}, "visualize_validation"),
+    ("model", {"activation": "silu"}, "activation"),
 ])
 def test_training_is_refused(part, override, what):
     """What the port's training still refuses; the flagship trains."""

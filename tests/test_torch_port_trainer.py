@@ -302,7 +302,6 @@ def test_validation_only_from_a_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--visualize-validation"],
     ["--n-devices", "2"],
     ["--wandb-mode", "online"],
     ["--wandb-mode", "offline"],
