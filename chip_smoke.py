@@ -168,6 +168,24 @@ Phases (any failure exits non-zero and prints no result):
      --visualize-validation must write the reference's 17 folders; the
      timing script's sweep (b1, b8, b32 x bf16, f32; 3 warmup and 10
      timed runs) is logged.
+ 11. variants (`[variants]`, the other model settings at 640x480, bf16,
+     random weights from seed 0): the five-task model (R34-NBt1D, every
+     task and normal, panoptic, hypersim's dataset config) at b1 and b2
+     in 'decode' (one decoder-trunk launch over its three dense
+     decoders, D = 3, at each) and b8 in 'decode-planes' (kernels 1-7,
+     17 chain calls), three b8 fused_training steps with the normal loss
+     (kernels 9 and 10, every loss finite); the rgbd (one stem of C = 4)
+     and rgb-only (C = 3) R34-NBt1D encoders and the R50 dual encoder,
+     b1 and b8 in 'decode-planes'. Launch counters are set to 0 just
+     before each model's frames and read just after. Per model: ms per
+     frame (median of 3 rounds of 5) and device busy of one profiled
+     frame; the step's ms. Kernel cases against the plain versions, bf16
+     and f32: the trunk with D = 3 at b1 and b2 and, where it ran, at
+     R50 widths; the stem with one modality at C = 4, 3, 1, b1 and b8
+     (the stem and the D = 3 trunk also bit for bit on repeat). Every
+     setting of the CPU parity list (tests/test_torch_port_variants_*.py)
+     as a small R18 96x128 f32 b2 frame, card against CPU, with phase 4's
+     limits.
 
 Tolerances (error relative to the largest magnitude of the plain result
 unless stated): stem bf16 2e-2, f32 1e-4; NBt1D chain bf16 5e-2 (K
@@ -196,7 +214,8 @@ sums, and on gu where a flip moves a few elements, it lies far above the
 gated error; PERF.md gives both);
 semantic head loss bf16 1e-2 / f32 1e-5 (the kernel rounds the
 summed polyphase taps, the plain conv each 3x3 tap), dx 5e-2 / 1e-4,
-dweight 5e-2 / 1e-3. Small train step, card vs CPU: losses 1e-4
+dweight 5e-2 / 1e-3 (phase 11's cases take the same tolerances).
+Small train step, card vs CPU: losses 1e-4
 relative, BatchNorm running statistics atol 1e-4 / rtol 1e-3; the
 parameter updates (and gradients) by the relative norm of their
 difference, < 5e-2 over all and < 0.5 per tensor: an f32 gradient of
@@ -315,6 +334,9 @@ TRUNK_DEVICE_KERNEL = "decoder_trunk_kernel<__nv_bfloat16>"
 # frame or step whose trace lacks a kernel it must run is profiled again,
 # and fails when none of this many traces shows it
 PROFILE_ATTEMPTS = 3
+# every traced span opens with this many spin kernels (`traced`)
+TRACE_LEAD = 64
+LEAD_KERNEL = "spin_kernel"
 # (source, kernel, instantiations): ptxas must give each instantiation
 # (bf16 and f32; the histogram's D = 1 and 2) no stack frame
 STACK_FREE = (("semantic_train_head", "head_loss_fwd_kernel", 2),
@@ -1020,6 +1042,9 @@ def run() -> int:
         inference_report = inference_phase(torch, modules, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # -- 11. the other model settings ----------------------------------------
+    torch.cuda.empty_cache()
+    variants_report = variants_phase(torch, modules, ops_mod)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": card, "frame_ms": frame_ms, "detail": detail,
                    "launches": launches, "errors": errors,
@@ -1033,7 +1058,8 @@ def run() -> int:
                    "train": train_report,
                    "validation": validation_report,
                    "dataset": dataset_report,
-                   "inference": inference_report}, f, indent=1)
+                   "inference": inference_report,
+                   "variants": variants_report}, f, indent=1)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))
@@ -1168,6 +1194,7 @@ def validation_phase(torch, modules):
             enable_panoptic=True, input_height=96, input_width=128,
             rgb_encoder_backbone="resnet18",
             depth_encoder_backbone="resnet18", fused_training=True,
+            fused_inference=True,
             head_decode_fusion=pc.best_head_decode_fusion(2)),
         data=pc.DataConfig(dataset="synthetic", batch_size=2,
                            validation_batch_size=2, synthetic_n_samples=4,
@@ -1744,42 +1771,69 @@ def chain_sites(torch, captured, ops_mod, card):
     return report
 
 
+def traced(body, activities):
+    """(torch.profiler trace, wall ms of body) of one span. A trace loses
+    the first few device records of its span, and more the longer the
+    process has run (on the H100: none at 80 s, 2-3 after the training
+    and validation phases, every record of a 10-call span in phase 11):
+    each span opens with TRACE_LEAD spin kernels, and counts only where
+    one of them is left, so the records after them are whole."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+
+    lead = TRACE_LEAD
+    while True:
+        with profile(activities=activities) as prof:
+            for _ in range(lead):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            body()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if any(LEAD_KERNEL in ev.key for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA):
+            return prof, wall_ms
+        if lead >= 16 * TRACE_LEAD:
+            raise AssertionError(f"torch.profiler kept none of the {lead} "
+                                 "spin kernels that open its trace")
+        lead *= 4
+
+
+def device_rows(prof):
+    """[(device ms, count, kernel name)] of a trace, longest first: the
+    spin kernels and the user annotations (the optimizer's step range,
+    which spans kernels counted on their own) left out."""
+    from torch.autograd import DeviceType
+
+    return sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0
+                   and LEAD_KERNEL not in ev.key
+                   and not ev.key.startswith("Optimizer.")), reverse=True)
+
+
 def device_ms(fn, runs=10):
     """Device milliseconds per call of fn under torch.profiler."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA) / 1e3 / runs
+    prof, _ = traced(lambda: [fn() for _ in range(runs)],
+                     [ProfilerActivity.CUDA])
+    return sum(r[0] for r in device_rows(prof)) / runs
 
 
 def profile_frame(frame, batch):
     """(wall ms, [(device ms, count, kernel name)]) of one frame."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        frame(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # user annotations (the optimizer's step range) span kernels that
-    # are counted on their own
-    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA
-            and ev.self_device_time_total > 0
-            and not ev.key.startswith("Optimizer.")]
-    return wall_ms, sorted(rows, reverse=True)
+    prof, wall_ms = traced(lambda: frame(batch), [ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])
+    return wall_ms, device_rows(prof)
 
 
 # ---------------------------------------------------------------------------
@@ -1787,7 +1841,8 @@ def profile_frame(frame, batch):
 
 
 def train_setup(torch, height, width, backbone, batch_size, dtype, device,
-                dropout, seed=0):
+                dropout, seed=0,
+                tasks=("semantic", "instance", "orientation", "scene")):
     """(model, optimizer, step, device batch, cfg, loader seconds per
     batch) of a synthetic-data training configuration: the first of 3
     batches drawn through the train preprocessor and the loader."""
@@ -1805,11 +1860,12 @@ def train_setup(torch, height, width, backbone, batch_size, dtype, device,
 
     drop = {} if dropout else {
         "dropout_p": 0.0, "semantic_decoder_block_dropout_p": 0.0,
-        "instance_decoder_block_dropout_p": 0.0}
+        "instance_decoder_block_dropout_p": 0.0,
+        "normal_decoder_block_dropout_p": 0.0}
     cfg = pc.validate_train_for_port(pc.EMSANetConfig(
         model=pc.ModelConfig(
-            tasks=("semantic", "instance", "orientation", "scene"),
-            enable_panoptic=True, input_height=height, input_width=width,
+            tasks=tasks, enable_panoptic=True, input_height=height,
+            input_width=width,
             rgb_encoder_backbone=backbone, depth_encoder_backbone=backbone,
             fused_training=True, **drop),
         data=pc.DataConfig(dataset="synthetic", batch_size=batch_size,
@@ -2475,8 +2531,8 @@ def dataset_phase(torch, modules, tmp):
         f"read back equal to the generator: {n} PNG, {n_packed} packed")
     flags = ["--dataset", "nyuv2", "--tasks", "semantic", "instance",
              "orientation", "scene", "--enable-panoptic",
-             "--mixed-precision", "--fused-training", "--batch-size",
-             "8", "--validation-batch-size", "8",
+             "--mixed-precision", "--fused-training", "--fused-inference",
+             "--batch-size", "8", "--validation-batch-size", "8",
              "--head-decode-fusion", "auto", "--n-workers",
              str(LOADER_WORKERS), "--validation-force-interval", "1"]
     cfg, _, _ = trainer.parse_args(flags + ["--dataset-path",
@@ -2580,7 +2636,8 @@ def dataset_phase(torch, modules, tmp):
         "semantic", "instance", "orientation", "scene",
         "--enable-panoptic", "--rgb-encoder-backbone", "resnet18",
         "--depth-encoder-backbone", "resnet18", "--input-height", "96",
-        "--input-width", "128", "--fused-training", "--batch-size", "2",
+        "--input-width", "128", "--fused-training", "--fused-inference",
+        "--batch-size", "2",
         "--validation-batch-size", "2", "--head-decode-fusion", "auto",
         "--class-weighting", "none", "--n-workers", "4",
         "--validation-full-resolution"])
@@ -2617,7 +2674,7 @@ INFERENCE_SAMPLES = ((480, 640), (540, 960))
 SAMPLE_KERNELS = PATH_KERNELS["decode"]
 DATASET_KERNELS = PATH_KERNELS["decode-planes"] - {"decoder_trunk"}
 INFERENCE_TASKS = ("--tasks", "semantic", "instance", "orientation", "scene",
-                   "--enable-panoptic")
+                   "--enable-panoptic", "--fused-inference")
 TIMING_RUNS = ("--n-runs", "10", "--n-runs-warmup", "3")
 # what `--visualize-validation` writes per validation (the reference's
 # folders with every task and panoptic)
@@ -2851,8 +2908,8 @@ def inference_phase(torch, modules, tmp):
     panels, trees = {}, {}
     for device in ("cuda", "cpu"):
         sflags = ["--device", device, "--dataset", "nyuv2", "--dataset-path",
-                  small, *cases.SMALL_FLAGS, "--raw-depth", "--n-workers",
-                  "4", "--weights-filepath", ckpt]
+                  small, *cases.SMALL_FLAGS, "--raw-depth", "--n-workers", "4",
+                  "--weights-filepath", ckpt]
         panels[device] = os.path.join(root, f"small_panels_{device}")
         inference_samples.run(sflags + [
             "--sample-path", samples, "--depth-max", "8000",
@@ -2904,6 +2961,363 @@ def inference_phase(torch, modules, tmp):
     report["timing"] = rows
     report["seconds"] = time.perf_counter() - t_phase
     log(f"[inference] phase {report['seconds']:.1f} s")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# 11. the other model settings
+
+FIVE_TASKS = ("semantic", "instance", "orientation", "scene", "normal")
+VARIANT_ROUNDS = 3  # frame timing: median of rounds of 5 frames
+VARIANT_H, VARIANT_W = 480, 640
+# (label, ModelConfig overrides, backbone, head mode) of phase 11's (b)
+# and (c) models; each frame must launch the stem and the chain
+ENCODER_VARIANTS = (
+    ("rgbd R34", {"input_modalities": ("rgbd",)}, "resnet34"),
+    ("rgb R34", {"input_modalities": ("rgb",)}, "resnet34"),
+    ("R50 dual", {}, "resnet50"),
+)
+# (d): the CPU parity list's settings (tests/test_torch_port_variants_*.py)
+# as small R18 96x128 f32 b2 frames, card against CPU
+CPU_PARITY_SETTINGS = (
+    ("tasks+normal", {"tasks": FIVE_TASKS}),
+    ("five tasks, trunk on", {"tasks": FIVE_TASKS,
+                              "decoder_megakernel": "on"}),
+    ("normal only", {"tasks": ("normal",), "enable_panoptic": False}),
+    ("mlp every task", {"tasks": FIVE_TASKS,
+                        "semantic_decoder": "segformermlp",
+                        "instance_decoder": "segformermlp",
+                        "normal_decoder": "segformermlp"}),
+    ("mlp mixed with dense", {"tasks": FIVE_TASKS,
+                              "semantic_decoder": "segformermlp",
+                              "normal_decoder": "segformermlp"}),
+    ("basicblock and bottleneck blocks", {
+        "tasks": ("semantic", "instance", "normal"), "enable_panoptic": False,
+        "semantic_decoder_block": "basicblock",
+        "normal_decoder_block": "bottleneck"}),
+    ("rgb resnet18-d16", {"input_modalities": ("rgb",),
+                          "rgb_encoder_backbone": "resnet18-d16",
+                          "encoder_decoder_skip_downsamplings": (4, 8),
+                          "semantic_decoder_n_channels": (256, 128),
+                          "semantic_decoder_downsamplings": (8, 4),
+                          "instance_decoder_n_channels": (256, 128),
+                          "instance_decoder_downsamplings": (8, 4)}),
+    ("depth resnet18se", {"input_modalities": ("depth",),
+                          "depth_encoder_backbone": "resnet18se"}),
+    ("rgbd add-rgbd", {"input_modalities": ("rgbd",),
+                       "semantic_encoder_decoder_fusion": "add-rgbd",
+                       "instance_encoder_decoder_fusion": "add-rgbd"}),
+    ("dual resnet18se", {"rgb_encoder_backbone": "resnet18se",
+                         "depth_encoder_backbone": "resnet18se"}),
+    ("resnet50", {"rgb_encoder_backbone": "resnet50",
+                  "depth_encoder_backbone": "resnet50",
+                  "tasks": ("semantic", "scene"), "enable_panoptic": False}),
+    ("layernorm swish", {"encoder_normalization": "layernorm",
+                         "decoder_normalization": "layernorm",
+                         "activation": "swish"}),
+    ("groupnorm silu", {"encoder_normalization": "groupnorm",
+                        "decoder_normalization": "groupnorm",
+                        "activation": "silu"}),
+    ("unfused", {"fused_inference": False}),
+)
+STEM_CASES = (4, 3, 1)  # one modality's channels: rgbd, rgb, depth
+
+
+def _frame_model(torch, overrides, backbone, mode, ds_name="synthetic",
+                 h=None, w=None, dtype="bfloat16", device="cuda", seed=0,
+                 megakernel="auto"):
+    from emsanet_tpu_torch.bench import build_flagship, make_frame
+
+    model, cfg, ds = build_flagship(
+        h or VARIANT_H, w or VARIANT_W, dtype, backbone, device, seed, mode,
+        megakernel, dataset=ds_name, **overrides)
+    return model, cfg, make_frame(model, cfg, ds), make_frame(
+        model, cfg, ds, with_postprocessing=False)
+
+
+def _timed_frames(torch, frame, batch, profiled=True):
+    """(median ms per batch over VARIANT_ROUNDS rounds of 5 frames, the
+    range, and, where `profiled`, device busy ms of one profiled frame)."""
+    from emsanet_tpu_torch.bench import time_cuda
+
+    rounds = [time_cuda(lambda: frame(batch), 1, 5)
+              for _ in range(VARIANT_ROUNDS)]
+    out = {"ms": statistics.median(rounds), "min": min(rounds),
+           "max": max(rounds), "busy_ms": None}
+    if profiled:
+        wall, rows = profile_frame(frame, batch)
+        busy = sum(r[0] for r in rows)
+        out.update(profiled_wall_ms=wall, busy_ms=busy if busy > 0 else None)
+    return out
+
+
+def _run_frames(torch, modules, frame, batches, tag, need):
+    """Each batch's frame once under Capture, with the launch counters
+    from 0 just before and read just after; `need` must all launch.
+    Returns (results per batch, captured calls per batch, launches)."""
+    for b in batches.values():  # warm-up: lazy init, cuDNN heuristics
+        frame(b)
+    torch.cuda.synchronize()
+    reset_counts(modules)
+    results, calls = {}, {}
+    for n, b in batches.items():
+        with Capture(modules) as cap:
+            results[n] = frame(b)
+        calls[n] = cap.calls
+    torch.cuda.synchronize()
+    launches = counts(modules)
+    missing = sorted(k for k in need if launches[k] <= 0)
+    if missing:
+        raise AssertionError(f"[variants] {tag}: kernels {missing} were "
+                             "not launched")
+    for n, res in results.items():
+        bad = [k for k, v in res.items() if v.is_floating_point()
+               and not bool(torch.isfinite(v).all())]
+        if bad:
+            raise AssertionError(f"[variants] {tag} b{n}: non-finite "
+                                 f"outputs {bad}")
+    return results, calls, launches
+
+
+def _kernel_case(torch, name, args, ops_mod, tag, repeat=False):
+    """A kernel against its plain version (bf16 and f32), its times and
+    bound on these inputs; with `repeat`, two bf16 calls must agree bit
+    for bit."""
+    from emsanet_tpu_torch.bench import time_cuda
+
+    err, abs_err = compare(name, args, {}, ops_mod, "bf16")
+    err32, _ = compare(name, to_f32(name, args), {}, ops_mod, "f32")
+    kfn, pfn, _, byts, ops, odt = kernel_spec(name, args, {}, ops_mod)
+    if repeat:
+        first, again = _outputs(kfn()), _outputs(kfn())
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"[variants] {name} {tag}: two bf16 calls "
+                                 "differ")
+    t_bytes, t_ops = byts / PEAK_BYTES * 1e3, ops / PEAK_OPS[odt] * 1e3
+    row = {"err_bf16": err, "max_abs_err": abs_err, "err_f32": err32,
+           "ms": time_cuda(kfn, 2, 10), "plain_ms": time_cuda(pfn, 2, 10),
+           "device_ms": device_ms(kfn),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    log(f"[variants kernel] {name} {tag}: bf16 err {err:.2e} (max abs "
+        f"{abs_err:.3e}), f32 err {err32:.2e}; ms {row['ms']:.4f}, device "
+        f"{_ms(row['device_ms'])}, plain {row['plain_ms']:.4f}, bound "
+        f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    return row
+
+
+def _stem_case(torch, n, c, seed):
+    """One modality's stem inputs at 480x640: bf16 activations, a conv
+    weight of the He scale and a random BatchNorm."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, VARIANT_H, VARIANT_W, c), generator=g).to(
+        "cuda", torch.bfloat16)
+    w = (torch.randn((64, c, 7, 7), generator=g)
+         * (2.0 / (49 * c)) ** 0.5).cuda()
+    bn = (torch.rand(64, generator=g).cuda() + 0.5,
+          (torch.randn(64, generator=g) * 0.1).cuda(),
+          (torch.randn(64, generator=g) * 0.1).cuda(),
+          torch.rand(64, generator=g).cuda() + 0.5)
+    return ([x.contiguous()], [w], [bn])
+
+
+def variants_phase(torch, modules, ops_mod):
+    """Phase 11: the models of the other settings, at 640x480 in bf16 with
+    random weights from seed 0.
+    (a) The five-task model (R34-NBt1D dual encoder; semantic, instance,
+    orientation, scene and normal; panoptic; hypersim's dataset config):
+    a b1 frame in 'decode' (the decoder trunk, 'auto': one launch over
+    the three dense decoders, D = 3) and a b2 frame (the trunk again); a
+    b8 frame in 'decode-planes' (kernels 1-7; 17 chain calls: 8 encoder
+    tails and 3 modules of each of the three decoders); three b8
+    `fused_training` train steps on synthetic batches with normals
+    (kernels 9 and 10; every loss finite, the normal loss included).
+    (b) The rgbd R34-NBt1D encoder (one stem of C = 4) and the rgb-only
+    R34-NBt1D (C = 3), b1 and b8 frames in 'decode-planes'. (c) The R50
+    dual encoder (bottleneck), b1 and b8 frames in 'decode-planes'; the
+    trunk where its gate admits the R50 widths. Each model: launch counts,
+    ms per frame (median of rounds), device busy of one profiled b8 frame.
+    Kernel cases against the plain versions: the stem with one modality
+    at C = 4, 3 and 1 (b1 and b8), the trunk with D = 3 at b1 and b2 (each
+    also bit for bit on repeat), the trunk at R50 widths where it ran.
+    (d) Every setting of the CPU parity list as a small R18 96x128 f32 b2
+    frame, card against CPU (raw outputs within 1e-3 of each leaf's
+    largest magnitude, the postprocessed id maps equal on >= 0.99 of the
+    pixels, as phase 4)."""
+    from emsanet_tpu_torch.bench import random_raw_inputs, time_cuda
+    from emsanet_tpu_torch.ops import nbt1d_train as tm
+    from emsanet_tpu_torch.ops import semantic_train_head as hm
+    from emsanet_tpu_torch.train import dropout_generator_for
+
+    t_phase = time.perf_counter()
+    torch.set_grad_enabled(False)
+    report = {"models": {}, "kernels": {}, "card_vs_cpu": {}}
+    inputs = {b: random_raw_inputs(b, VARIANT_H, VARIANT_W, seed=b,
+                                   device="cuda") for b in (1, 2, 8)}
+    five = {"tasks": FIVE_TASKS}
+
+    # (a) the five-task model
+    _, _, frame1, _ = _frame_model(torch, five, "resnet34", "decode",
+                                   "hypersim")
+    res, calls, launches = _run_frames(
+        torch, modules, frame1, {1: inputs[1], 2: inputs[2]},
+        "five tasks decode", PATH_KERNELS["decode"])
+    trunk_d = [int(a[2][0]["cin_w"].shape[0])
+               for n in (1, 2) for a, _ in calls[n]["decoder_trunk"]]
+    if trunk_d != [3, 3]:
+        raise AssertionError(f"[variants] five tasks: trunk calls of D "
+                             f"{trunk_d}, expected one of D = 3 at b1 and b2")
+    if tuple(res[1]["normal"].shape) != (1, VARIANT_H, VARIANT_W, 3):
+        raise AssertionError("[variants] five tasks: normal map of shape "
+                             f"{tuple(res[1]['normal'].shape)}")
+    norm = torch.linalg.vector_norm(res[1]["normal"].float(), dim=-1)
+    if float((norm - 1).abs().max()) > 2e-2:
+        raise AssertionError("[variants] five tasks: normals not unit")
+    report["kernels"]["decoder_trunk D=3 b1"] = _kernel_case(
+        torch, "decoder_trunk", calls[1]["decoder_trunk"][0][0], ops_mod,
+        "D=3 b1", repeat=True)
+    report["kernels"]["decoder_trunk D=3 b2"] = _kernel_case(
+        torch, "decoder_trunk", calls[2]["decoder_trunk"][0][0], ops_mod,
+        "D=3 b2", repeat=True)
+    timed = {1: _timed_frames(torch, frame1, inputs[1])}
+    del frame1, res, calls
+    _, _, frame8, _ = _frame_model(torch, five, "resnet34",
+                                   "decode-planes", "hypersim")
+    res, calls, launches8 = _run_frames(
+        torch, modules, frame8, {8: inputs[8]}, "five tasks decode-planes",
+        PATH_KERNELS["decode-planes"] - {"decoder_trunk"})
+    n_chain = len(calls[8]["nbt1d_chain"])
+    if n_chain != 17:
+        raise AssertionError(f"[variants] five tasks b8: {n_chain} chain "
+                             "calls, expected 17 (8 encoder tails, 3 x 3 "
+                             "decoder modules)")
+    timed[8] = _timed_frames(torch, frame8, inputs[8])
+    del frame8, res, calls
+    torch.cuda.empty_cache()
+    torch.set_grad_enabled(True)
+    train_mods = {"nbt1d_train": tm, "semantic_train_head": hm}
+    model, _, step, batch, _, _ = train_setup(
+        torch, VARIANT_H, VARIANT_W, "resnet34", 8, "bfloat16", "cuda", True,
+        tasks=FIVE_TASKS)
+    reset_counts(train_mods, TRAIN_KERNELS)
+    for i in range(TRAIN_STEPS):
+        metrics = step(batch, dropout_generator_for(0, 0, i, "cuda"))
+        _finite_losses(metrics, f"[variants] five-task step {i}")
+        if "normal_total_loss" not in metrics:
+            raise AssertionError("[variants] the step has no normal loss")
+    torch.cuda.synchronize()
+    train_launches = counts(train_mods, TRAIN_KERNELS)
+    if any(n <= 0 for n in train_launches.values()):
+        raise AssertionError(f"[variants] train kernels not launched: "
+                             f"{train_launches}")
+    step_rounds = [time_cuda(lambda: step(batch), 0, 2) for _ in range(3)]
+    losses = {k: round(float(v), 5) for k, v in metrics.items()}
+    del model, step, batch
+    torch.set_grad_enabled(False)
+    torch.cuda.empty_cache()
+    report["models"]["five tasks R34"] = {
+        "launches_b1_b2": launches, "launches_b8": launches8,
+        "trunk_d": trunk_d, "chain_calls_b8": n_chain, "frames": timed,
+        "train_launches": train_launches, "train_losses": losses,
+        "step_ms": statistics.median(step_rounds),
+        "step_ms_range": [min(step_rounds), max(step_rounds)]}
+    log(f"[variants] five tasks R34 640x480 bf16: b1 decode "
+        f"{timed[1]['ms']:.3f} ms ({timed[1]['min']:.3f}-"
+        f"{timed[1]['max']:.3f}), busy {_ms(timed[1]['busy_ms'])}; b8 "
+        f"decode-planes {timed[8]['ms']:.3f} ms "
+        f"({timed[8]['ms'] / 8:.3f} a frame), busy "
+        f"{_ms(timed[8]['busy_ms'])}; trunk D {trunk_d}; chain calls b8 "
+        f"{n_chain}; launches b1+b2 {json.dumps(launches)}, b8 "
+        f"{json.dumps(launches8)}; b8 train step "
+        f"{statistics.median(step_rounds):.2f} ms ({min(step_rounds):.2f}-"
+        f"{max(step_rounds):.2f}), launches {json.dumps(train_launches)}, "
+        f"last losses {json.dumps(losses)}")
+
+    # (b), (c) the encoders
+    for label, overrides, backbone in ENCODER_VARIANTS:
+        _, cfg, frame, _ = _frame_model(torch, overrides, backbone,
+                                        "decode-planes")
+        mods = cfg.input_modalities
+        vin = {b: random_raw_inputs(b, VARIANT_H, VARIANT_W, seed=b,
+                                    device="cuda", modalities=mods)
+               for b in (1, 8)}
+        res, calls, launches = _run_frames(
+            torch, modules, frame, vin, label,
+            PATH_KERNELS["decode-planes"] - {"decoder_trunk"})
+        stems = [[int(x.shape[3]) for x in a[0]]
+                 for n in (1, 8) for a, _ in calls[n]["fused_stems"]]
+        trunk_calls = calls[1]["decoder_trunk"]
+        entry = {"launches": launches, "stem_channels": stems,
+                 "trunk_b1": bool(trunk_calls),
+                 "frames": {b: _timed_frames(torch, frame, vin[b],
+                                             profiled=b == 8)
+                            for b in (1, 8)}}
+        if trunk_calls:
+            entry["trunk_kernel"] = _kernel_case(
+                torch, "decoder_trunk", trunk_calls[0][0], ops_mod,
+                f"{label} b1")
+        report["models"][label] = entry
+        f1, f8 = entry["frames"][1], entry["frames"][8]
+        log(f"[variants] {label} 640x480 bf16 decode-planes: stems of C "
+            f"{stems}; b1 {f1['ms']:.3f} ms ({f1['min']:.3f}-"
+            f"{f1['max']:.3f}); b8 "
+            f"{f8['ms']:.3f} ms ({f8['ms'] / 8:.3f} a frame), busy "
+            f"{_ms(f8['busy_ms'])}; trunk at b1: "
+            f"{'yes' if trunk_calls else 'no (its gate or the fusion)'}; "
+            f"launches {json.dumps(launches)}")
+        del frame, res, calls, vin
+        torch.cuda.empty_cache()
+
+    # the stem with one modality against its plain version
+    for c in STEM_CASES:
+        for n in (1, 8):
+            report["kernels"][f"fused_stems C={c} b{n}"] = _kernel_case(
+                torch, "fused_stems", _stem_case(torch, n, c, 10 * c + n),
+                ops_mod, f"one modality C={c} b{n}", repeat=True)
+
+    # (d) card against CPU, every setting of the CPU parity list
+    for label, overrides in CPU_PARITY_SETTINGS:
+        megakernel = overrides.get("decoder_megakernel", "auto")
+        kw = {k: v for k, v in overrides.items() if k != "decoder_megakernel"}
+        built = {dev: _frame_model(torch, kw, "resnet18", "decode-planes",
+                                   h=96, w=128, dtype="float32",
+                                   device=dev, seed=1,
+                                   megakernel=megakernel)
+                 for dev in ("cuda", "cpu")}
+        mods = built["cuda"][1].input_modalities
+        sin = {"cpu": random_raw_inputs(2, 96, 128, seed=3, device="cpu",
+                                        modalities=mods)}
+        sin["cuda"] = {k: v.cuda() for k, v in sin["cpu"].items()}
+        raw = {dev: dict(_leaves(b[3](sin[dev])))
+               for dev, b in built.items()}
+        post = {dev: b[2](sin[dev]) for dev, b in built.items()}
+        if sorted(raw["cuda"]) != sorted(raw["cpu"]) or (
+                sorted(post["cuda"]) != sorted(post["cpu"])):
+            raise AssertionError(f"[variants] {label}: output keys differ")
+        worst = max(rel_err(raw["cuda"][k].cpu(), v)
+                    for k, v in raw["cpu"].items())
+        agree = {k: float((post["cuda"][k].cpu() == post["cpu"][k])
+                          .float().mean())
+                 for k in ("semantic_segmentation_idx",
+                           "instance_segmentation",
+                           "panoptic_segmentation_deeplab")
+                 if k in post["cpu"]}
+        low = {k: a for k, a in agree.items() if a < 0.99}
+        if worst > 1e-3 or low:
+            raise AssertionError(f"[variants] {label}: card vs CPU raw "
+                                 f"error {worst:.3e}, maps below 0.99: {low}")
+        report["card_vs_cpu"][label] = {"raw_rel_err": worst,
+                                        "min_agree": min(agree.values(),
+                                                         default=1.0)}
+        del built, raw, post
+    log(f"[variants] card vs CPU, R18 96x128 f32 b2, {len(CPU_PARITY_SETTINGS)}"
+        f" settings: worst raw output error "
+        f"{max(r['raw_rel_err'] for r in report['card_vs_cpu'].values()):.2e}"
+        f", least map agreement "
+        f"{min(r['min_agree'] for r in report['card_vs_cpu'].values()):.4f}")
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[variants] phase {report['seconds']:.1f} s")
     return report
 
 

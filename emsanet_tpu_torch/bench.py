@@ -21,6 +21,13 @@ MAX_BATCH` (2) compute both decoders' trunks in one launch of the
 decoder-trunk kernel; larger batches run the decoders module by module,
 as the reference `bench.py` does with its own default.
 
+`--no-fused` runs the model module by module (`fused_inference=False`),
+as the reference's flag does (`bench.py:79`); by default the frame runs
+through the kernels. `--input-modalities` builds the other encoders
+('rgb', 'depth', 'rgbd'); the raw frames then carry only the modalities
+the model takes (rgbd: both, normalized on the device and concatenated
+by the model).
+
 `build_flagship`, `random_raw_inputs` and `make_frame` are shared with
 `chip_smoke.py`.
 """
@@ -52,25 +59,34 @@ def build_flagship(
     height: int = 480, width: int = 640, dtype: str = "bfloat16",
     backbone: str = "resnet34", device: str = "cuda", seed: int = 0,
     head_decode_fusion: str = "decode", decoder_megakernel: str = "auto",
+    fused_inference: bool = True, dataset: str = "synthetic", **overrides,
 ) -> Tuple[EMSANet, ModelConfig, DatasetConfig]:
-    cfg = flagship_config(
-        input_height=height, input_width=width, compute_dtype=dtype,
-        rgb_encoder_backbone=backbone, depth_encoder_backbone=backbone,
-        head_decode_fusion=head_decode_fusion,
-        decoder_megakernel=decoder_megakernel,
-    )
-    ds = get_dataset_config("synthetic")
+    """The flagship (or, with `overrides` of ModelConfig fields, another
+    model) with random weights from `seed`, for `dataset`'s config;
+    `backbone` names every encoder's."""
+    cfg = flagship_config(**{
+        "input_height": height, "input_width": width,
+        "compute_dtype": dtype, "rgb_encoder_backbone": backbone,
+        "depth_encoder_backbone": backbone, "rgbd_encoder_backbone": backbone,
+        "head_decode_fusion": head_decode_fusion,
+        "decoder_megakernel": decoder_megakernel,
+        "fused_inference": fused_inference, **overrides})
+    ds = get_dataset_config(dataset)
     return build_model(cfg, ds, device=device, seed=seed), cfg, ds
 
 
-def random_raw_inputs(n: int, h: int, w: int, seed: int,
-                      device) -> Dict[str, torch.Tensor]:
-    """uint8 RGB and uint16 depth (0..9999), drawn on the host from `seed`."""
+def random_raw_inputs(n: int, h: int, w: int, seed: int, device,
+                      modalities=("rgb", "depth")) -> Dict[str, torch.Tensor]:
+    """uint8 RGB and uint16 depth (0..9999), drawn on the host from `seed`
+    (both always drawn, so a frame's RGB does not depend on
+    `modalities`); the ones `modalities` takes ('rgbd' takes both)."""
     g = torch.Generator().manual_seed(seed)
     rgb = torch.randint(0, 256, (n, h, w, 3), generator=g).to(torch.uint8)
     depth = torch.randint(0, 10000, (n, h, w, 1), generator=g).to(
         torch.uint16)
-    return {"rgb": rgb.to(device), "depth": depth.to(device)}
+    keep = {"rgb", "depth"} if "rgbd" in modalities else set(modalities)
+    return {k: v.to(device) for k, v in (("rgb", rgb), ("depth", depth))
+            if k in keep}
 
 
 def make_frame(model: EMSANet, cfg: ModelConfig, ds: DatasetConfig,
@@ -126,6 +142,12 @@ def main(argv=None) -> int:
                         choices=HEAD_DECODE_FUSIONS,
                         help="head mode (default: best_head_decode_fusion "
                         "of the batch size)")
+    parser.add_argument("--no-fused", action="store_true",
+                        help="run the model module by module "
+                        "(fused_inference=False)")
+    parser.add_argument("--input-modalities", nargs="+",
+                        default=("rgb", "depth"),
+                        choices=("rgb", "depth", "rgbd"))
     args = parser.parse_args(argv)
     if args.quick:
         args.batch_size, args.warmup, args.runs = 2, 2, 5
@@ -135,12 +157,15 @@ def main(argv=None) -> int:
                            "CUDA device")
     mode = args.head_decode_fusion or best_head_decode_fusion(
         args.batch_size, args.with_postprocessing)
+    mods = tuple(args.input_modalities)
     model, cfg, ds = build_flagship(
         args.height, args.width, args.dtype,
-        "resnet18" if args.quick else "resnet34", head_decode_fusion=mode)
+        "resnet18" if args.quick else "resnet34",
+        head_decode_fusion=mode, fused_inference=not args.no_fused,
+        input_modalities=mods)
     n, h, w = args.batch_size, args.height, args.width
     if args.raw_inputs:
-        batch = random_raw_inputs(n, h, w, 0, "cuda")
+        batch = random_raw_inputs(n, h, w, 0, "cuda", mods)
     else:
         g = torch.Generator().manual_seed(0)
         batch = {"rgb": torch.randn((n, h, w, 3), generator=g).cuda(),
@@ -158,6 +183,7 @@ def main(argv=None) -> int:
     }))
     print(f"# batch={n} dtype={args.dtype} postproc="
           f"{args.with_postprocessing} head_decode_fusion={mode} "
+          f"fused={not args.no_fused} modalities={','.join(mods)} "
           f"latency/batch={ms:.3f}ms "
           f"device={torch.cuda.get_device_name(0)}", file=sys.stderr)
     return 0

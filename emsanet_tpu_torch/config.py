@@ -2,8 +2,12 @@
 
 A copy of the `ModelConfig`, `DataConfig` and `TrainConfig` fields that
 the inference frame and the training step read (counterpart:
-`emsanet_tpu/config.py`). Field names and defaults are the same, except
-`fused_inference` (True: the only inference path ported).
+`emsanet_tpu/config.py`). Field names and defaults are the same.
+`fused_inference` (default False, as there) sends inference through the
+kernels: the stems, the stride-1 NBt1D chains, the polyphase x2
+upsamplings and, with `head_decode_fusion`, the heads' decode kernels;
+without it the model runs its modules one by one (the JAX package's
+default forward) and postprocessing takes the full-resolution maps.
 `decoder_megakernel` ('auto', 'on' or 'off') decides, as in the
 reference, whether every dense decoder's trunk runs as one call
 (`ops/decoder_trunk.py`): 'auto' where the context output lies on the
@@ -18,9 +22,12 @@ raw depth, the validation split of NYUv2 and SUNRGB-D, the validation
 input size and batch size defaults). `best_head_decode_fusion` is the reference's mode
 choice per batch size.
 
-`validate_for_port` and `validate_train_for_port` refuse, with a "not
-ported yet" error, every setting this package does not run yet. They
-never fall back to another path.
+`validate_for_port` checks every value against the JAX package's
+registries and applies its model rules (one modality forces
+`encoder_fusion='none'`, a decoder other than 'emsanet' trains without
+multiscale supervision). `validate_train_for_port` refuses, with a "not
+ported yet" error, data parallel training (`n_devices` > 1); the trainer
+refuses wandb logging. Neither falls back to another path.
 """
 
 from __future__ import annotations
@@ -29,6 +36,21 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple, Union
 
 KNOWN_TASKS = ("semantic", "instance", "orientation", "scene", "normal")
+KNOWN_MODALITIES = ("rgb", "depth", "rgbd")
+# '-d16' may follow each name (backbone.get_backbone_spec)
+KNOWN_BACKBONES = ("resnet18", "resnet34", "resnet50", "resnet101",
+                   "resnet18se", "resnet34se")
+KNOWN_BLOCKS = ("basicblock", "bottleneck", "nonbottleneck1d")
+KNOWN_CONTEXT_MODULES = ("ppm", "appm", "ppm-1-2-4-8", "appm-1-2-4-8", "none")
+KNOWN_ENCODER_FUSIONS = ("se-add-uni-rgb", "se-add-uni-depth", "add-uni-rgb",
+                         "add-uni-depth", "none")
+KNOWN_ENCODER_DECODER_FUSIONS = ("add-rgb", "add-depth", "add-rgbd", "none")
+KNOWN_UPSAMPLINGS = ("learned-3x3-zeropad", "learned-3x3", "bilinear",
+                     "nearest")
+KNOWN_DECODERS = ("emsanet", "segformermlp")
+KNOWN_ACTIVATIONS = ("relu", "swish", "silu")
+KNOWN_NORMALIZATIONS = ("batchnorm", "layernorm", "groupnorm")
+DENSE_TASKS = ("semantic", "instance", "normal")
 HEAD_DECODE_FUSIONS = ("interleave", "decode", "decode-both", "decode-planes")
 
 
@@ -48,6 +70,8 @@ class ModelConfig:
     rgb_encoder_backbone_block: str = "nonbottleneck1d"
     depth_encoder_backbone: str = "resnet34"
     depth_encoder_backbone_block: str = "nonbottleneck1d"
+    rgbd_encoder_backbone: str = "resnet34"
+    rgbd_encoder_backbone_block: str = "nonbottleneck1d"
     encoder_normalization: str = "batchnorm"
     encoder_fusion: str = "se-add-uni-rgb"
     encoder_decoder_skip_downsamplings: Tuple[int, ...] = (4, 8, 16)
@@ -63,6 +87,7 @@ class ModelConfig:
     semantic_decoder_block: str = "nonbottleneck1d"
     semantic_decoder_block_dropout_p: float = 0.2
     semantic_decoder_n_blocks: int = 3
+    semantic_decoder_dropout_p: float = 0.1  # segformermlp only
     semantic_decoder_n_channels: Tuple[int, ...] = (512, 256, 128)
     semantic_decoder_downsamplings: Tuple[int, ...] = (16, 8, 4)
     semantic_decoder_upsampling: str = "learned-3x3-zeropad"
@@ -72,6 +97,7 @@ class ModelConfig:
     instance_decoder_block: str = "nonbottleneck1d"
     instance_decoder_block_dropout_p: float = 0.2
     instance_decoder_n_blocks: int = 3
+    instance_decoder_dropout_p: float = 0.1
     instance_decoder_n_channels: Tuple[int, ...] = (512, 256, 128)
     instance_decoder_downsamplings: Tuple[int, ...] = (16, 8, 4)
     instance_decoder_upsampling: str = "learned-3x3-zeropad"
@@ -86,18 +112,28 @@ class ModelConfig:
     instance_offset_distance_threshold: Optional[int] = None
 
     normal_decoder: str = "emsanet"
+    normal_decoder_block: str = "nonbottleneck1d"
+    normal_decoder_block_dropout_p: float = 0.2
+    normal_decoder_n_blocks: int = 3
+    normal_decoder_dropout_p: float = 0.1
+    normal_decoder_n_channels: Tuple[int, ...] = (512, 256, 128)
+    normal_decoder_downsamplings: Tuple[int, ...] = (16, 8, 4)
+    normal_decoder_upsampling: str = "learned-3x3-zeropad"
+    normal_encoder_decoder_fusion: str = "add-rgb"
     no_zero_init_decoder_residuals: bool = False
     semantic_no_multiscale_supervision: bool = False
     instance_no_multiscale_supervision: bool = False
+    normal_no_multiscale_supervision: bool = False
 
     # ImageNet-pretrained encoder backbones (torchvision ResNet files);
     # the shared path fills each modality's that is not given
     encoder_backbone_pretrained_weights_filepath: Optional[str] = None
     rgb_encoder_backbone_pretrained_weights_filepath: Optional[str] = None
     depth_encoder_backbone_pretrained_weights_filepath: Optional[str] = None
+    rgbd_encoder_backbone_pretrained_weights_filepath: Optional[str] = None
 
     compute_dtype: str = "float32"
-    fused_inference: bool = True
+    fused_inference: bool = False
     # training: stride-1 NBt1D tails through the pair kernels
     # (ops/nbt1d_train.py) and, with fused_train_head, the semantic head's
     # final x2 stage + CE through the head-loss kernels
@@ -120,13 +156,18 @@ class ModelConfig:
     def instance_sigmoid_for_center(self) -> bool:
         return self.instance_center_encoding == "sigmoid"
 
+    def task_multiscale_supervision(self, task: str) -> bool:
+        """Whether a dense task's decoder trains with side outputs: an
+        'emsanet' decoder without its `*_no_multiscale_supervision`."""
+        return (task in DENSE_TASKS and task in self.tasks
+                and getattr(self, f"{task}_decoder") == "emsanet"
+                and not getattr(self, f"{task}_no_multiscale_supervision"))
+
     def task_side_output_downscales(self, task: str) -> Tuple[int, ...]:
         """Downscales of a task decoder's side outputs: each module emits
         one at the scale it receives, (16, 8, 4) -> (32, 16, 8); none
         without multiscale supervision."""
-        if task not in ("semantic", "instance") or task not in self.tasks:
-            return ()
-        if getattr(self, f"{task}_no_multiscale_supervision"):
+        if not self.task_multiscale_supervision(task):
             return ()
         return tuple(2 * d for d in
                      getattr(self, f"{task}_decoder_downsamplings"))
@@ -135,7 +176,7 @@ class ModelConfig:
     def side_output_downscales(self) -> Tuple[int, ...]:
         """Union over the tasks: the `_down_{s}` targets to generate."""
         scales = set()
-        for task in ("semantic", "instance"):
+        for task in DENSE_TASKS:
             scales.update(self.task_side_output_downscales(task))
         return tuple(sorted(scales, reverse=True))
 
@@ -192,6 +233,7 @@ class TrainConfig:
     instance_weighting: Tuple[float, float] = (2.0, 1.0)
     instance_center_loss: str = "mse"
     orientation_kappa: float = 1.0
+    normal_loss: str = "l1"  # the masked L1 (losses.l1_normal), the only one
     semantic_loss_label_smoothing: float = 0.0
     scene_loss_label_smoothing: float = 0.0
     # validation and checkpoints (`main.py`'s loop)
@@ -237,7 +279,7 @@ class EMSANetConfig:
                 f"tasks_weighting has {len(t.tasks_weighting)} entries but "
                 f"{len(m.tasks)} tasks are enabled.")
         if m.encoder_backbone_pretrained_weights_filepath:
-            for mod in ("rgb", "depth"):
+            for mod in ("rgb", "depth", "rgbd"):
                 key = f"{mod}_encoder_backbone_pretrained_weights_filepath"
                 if getattr(m, key) is None:
                     setattr(m, key,
@@ -270,11 +312,23 @@ def _refuse(what: str) -> None:
     raise NotPortedError(f"not ported yet: {what}")
 
 
-def validate_for_port(cfg: ModelConfig, train: bool = False) -> ModelConfig:
-    """Check `cfg` against what this package runs; raise otherwise."""
+def _check(value, known, what: str) -> None:
+    if value not in known:
+        raise ValueError(f"Unknown {what} '{value}', known: {known}")
+
+
+def validate_for_port(cfg: ModelConfig) -> ModelConfig:
+    """Check `cfg` against the JAX package's registries and apply its model
+    rules (`emsanet_tpu/config.py:439-485`) in place; raise on a value
+    it does not know. The port trains every setting it builds."""
+    from emsanet_tpu_torch.models.backbone import get_backbone_spec
+
     for task in cfg.tasks:
-        if task not in KNOWN_TASKS:
-            raise ValueError(f"Unknown task '{task}', known: {KNOWN_TASKS}")
+        _check(task, KNOWN_TASKS, "task")
+    if not cfg.input_modalities:
+        raise ValueError("input_modalities must name at least one modality")
+    for mod in cfg.input_modalities:
+        _check(mod, KNOWN_MODALITIES, "input modality")
     if "orientation" in cfg.tasks and "instance" not in cfg.tasks:
         raise ValueError("Task 'orientation' requires task 'instance'.")
     if cfg.enable_panoptic and not (
@@ -284,51 +338,35 @@ def validate_for_port(cfg: ModelConfig, train: bool = False) -> ModelConfig:
             "Panoptic segmentation requires both 'semantic' and "
             "'instance' tasks."
         )
-    if train and cfg.train_polyphase_upsampling:
-        _refuse("train_polyphase_upsampling=True")
-    if "normal" in cfg.tasks:
-        _refuse("the normal decoder")
-    for task in ("semantic", "instance"):
-        if task in cfg.tasks and getattr(cfg, f"{task}_decoder") != "emsanet":
-            _refuse(f"{task}_decoder='{getattr(cfg, f'{task}_decoder')}' "
-                    "(segformermlp)")
-    if tuple(cfg.input_modalities) != ("rgb", "depth"):
-        _refuse(f"input_modalities={tuple(cfg.input_modalities)} (only "
-                "the dual rgb+depth encoder is ported)")
-    if cfg.head_decode_fusion not in HEAD_DECODE_FUSIONS:
-        raise ValueError(
-            f"head_decode_fusion must be one of {HEAD_DECODE_FUSIONS}, got "
-            f"'{cfg.head_decode_fusion}'"
-        )
-    if cfg.decoder_megakernel not in ("off", "on", "auto"):
-        raise ValueError(
-            f"decoder_megakernel must be 'off', 'on' or 'auto', got "
-            f"'{cfg.decoder_megakernel}'"
-        )
-    if not cfg.fused_inference:
-        _refuse("fused_inference=False")
-    if cfg.activation != "relu":
-        _refuse(f"activation='{cfg.activation}'")
-    if "batchnorm" != cfg.encoder_normalization or (
-        "batchnorm" != cfg.decoder_normalization
-    ):
-        _refuse("normalizations other than batchnorm")
-    for mod in ("rgb", "depth"):
-        backbone = getattr(cfg, f"{mod}_encoder_backbone")
-        block = getattr(cfg, f"{mod}_encoder_backbone_block")
-        if backbone not in ("resnet18", "resnet34"):
-            _refuse(f"{mod}_encoder_backbone='{backbone}'")
-        if block not in ("nonbottleneck1d", "basicblock"):
-            _refuse(f"{mod}_encoder_backbone_block='{block}'")
-    for task in ("semantic", "instance"):
-        if getattr(cfg, f"{task}_decoder_block") != "nonbottleneck1d":
-            _refuse(f"{task}_decoder_block other than nonbottleneck1d")
-    if cfg.encoder_fusion not in ("se-add-uni-rgb", "se-add-uni-depth",
-                                  "add-uni-rgb", "add-uni-depth", "none"):
-        raise ValueError(f"Unknown encoder_fusion '{cfg.encoder_fusion}'")
-    if cfg.compute_dtype not in ("float32", "bfloat16"):
-        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
-                         f"'{cfg.compute_dtype}'")
+    # one modality: nothing to fuse (the reference's args.py:1317-1321)
+    if len(cfg.input_modalities) == 1 and cfg.encoder_fusion != "none":
+        cfg.encoder_fusion = "none"
+    _check(cfg.head_decode_fusion, HEAD_DECODE_FUSIONS, "head_decode_fusion")
+    _check(cfg.decoder_megakernel, ("off", "on", "auto"),
+           "decoder_megakernel")
+    _check(cfg.activation, KNOWN_ACTIVATIONS, "activation")
+    _check(cfg.encoder_normalization, KNOWN_NORMALIZATIONS, "normalization")
+    _check(cfg.decoder_normalization, KNOWN_NORMALIZATIONS, "normalization")
+    for mod in KNOWN_MODALITIES:
+        get_backbone_spec(getattr(cfg, f"{mod}_encoder_backbone"))
+        _check(getattr(cfg, f"{mod}_encoder_backbone_block"), KNOWN_BLOCKS,
+               "block")
+    _check(cfg.encoder_fusion, KNOWN_ENCODER_FUSIONS, "encoder_fusion")
+    _check(cfg.context_module, KNOWN_CONTEXT_MODULES, "context module")
+    _check(cfg.upsampling_context_module, ("nearest", "bilinear"),
+           "context upsampling")
+    _check(cfg.upsampling_prediction, KNOWN_UPSAMPLINGS, "upsampling")
+    for task in DENSE_TASKS:
+        _check(getattr(cfg, f"{task}_decoder"), KNOWN_DECODERS, "decoder")
+        _check(getattr(cfg, f"{task}_decoder_block"), KNOWN_BLOCKS, "block")
+        _check(getattr(cfg, f"{task}_decoder_upsampling"), KNOWN_UPSAMPLINGS,
+               "upsampling")
+        _check(getattr(cfg, f"{task}_encoder_decoder_fusion"),
+               KNOWN_ENCODER_DECODER_FUSIONS, "encoder-decoder fusion")
+        # no side outputs to supervise (the reference's args.py:1382-1398)
+        if getattr(cfg, f"{task}_decoder") != "emsanet":
+            setattr(cfg, f"{task}_no_multiscale_supervision", True)
+    _check(cfg.compute_dtype, ("float32", "bfloat16"), "compute_dtype")
     return cfg
 
 
@@ -339,7 +377,7 @@ def validate_train_for_port(cfg: EMSANetConfig) -> EMSANetConfig:
     """`cfg.validate()`, then refuse what the port's training does not
     run yet."""
     cfg.validate()
-    validate_for_port(cfg.model, train=True)
+    validate_for_port(cfg.model)
     d, t = cfg.data, cfg.train
     if (t.n_devices or 1) > 1:
         _refuse(f"n_devices={t.n_devices} (data parallel training)")
@@ -351,6 +389,8 @@ def validate_train_for_port(cfg: EMSANetConfig) -> EMSANetConfig:
     if t.instance_center_loss not in ("mse", "bce"):
         raise ValueError(f"Unknown instance center loss: "
                          f"'{t.instance_center_loss}'")
+    if t.normal_loss != "l1":
+        raise ValueError(f"Unknown normal loss: '{t.normal_loss}'")
     return cfg
 
 
@@ -374,10 +414,12 @@ def best_head_decode_fusion(batch_size: int,
 
 def flagship_config(**overrides) -> ModelConfig:
     """EMSANet-R34-NBt1D, tasks semantic+instance+orientation+scene,
-    panoptic on, in the configuration this package runs."""
+    panoptic on, as the deployed frame runs it (`bench.py`'s default:
+    `fused_inference=True`), with `overrides` set and the config
+    validated."""
     cfg = ModelConfig(
         tasks=("semantic", "instance", "orientation", "scene"),
-        enable_panoptic=True,
+        enable_panoptic=True, fused_inference=True,
     )
     for key, value in overrides.items():
         if not hasattr(cfg, key):

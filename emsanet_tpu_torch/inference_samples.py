@@ -124,9 +124,11 @@ def panel_tiles(batch: Dict, preds: Dict[str, np.ndarray],
     rgb_vis = resize_bicubic_u8(raw["rgb"], h, w)
     blank = np.zeros_like(rgb_vis)
     center, offset, orientation = dense_instance_maps(preds, 0)
+    depth = batch["depth"][0]  # (H, W): not normalized for an rgb model
     return [
         ("rgb", rgb_vis),
-        ("depth", visualize_depth(batch["depth"][0, ..., 0])),
+        ("depth", visualize_depth(depth[..., 0] if depth.ndim == 3
+                                  else depth)),
         ("semantic", visualize_semantic(
             preds["semantic_segmentation_idx"][0] + 1,
             semantic_colors(ds_config))),

@@ -7,10 +7,11 @@
 - instance center: MSE (or BCE) over the center mask;
 - instance offset: L1 over the ground-truth foreground;
 - orientation: the biternion von Mises loss over the orientation
-  foreground.
+  foreground;
+- normal: L1 over the 3 channels, averaged over the normal mask (the
+  pixels with a valid ground-truth normal) or over every pixel.
 
-Every loss reduces to an f32 scalar (f64 for f64 inputs). The normal
-loss (`l1_normal`) waits for the normal decoder.
+Every loss reduces to an f32 scalar (f64 for f64 inputs).
 """
 
 from __future__ import annotations
@@ -113,6 +114,12 @@ def von_mises_orientation(pred_biternion, target_biternion, foreground,
     loss = 1.0 - torch.exp(kappa * (cos_delta - 1.0))
     m = foreground.to(loss.dtype)
     return (loss * m).sum() / torch.clamp_min(m.sum(), 1e-12)
+
+
+def l1_normal(pred, target, mask=None) -> torch.Tensor:
+    """|pred - target| averaged over the masked pixels and the 3 channels,
+    or over everything without a mask (`emsanet_tpu/losses.py:155-164`)."""
+    return _masked_mean((_acc(pred) - _acc(target)).abs(), mask)
 
 
 def get_total_loss_key(task: str) -> str:

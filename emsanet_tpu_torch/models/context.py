@@ -3,7 +3,9 @@
 
 Returns `(fused_features, context_branches)`; the first branch (global
 average pool reduced to C / n_bins channels) also feeds the scene head.
-Tensors are NCHW.
+It takes the encoder's output width (2048 for the bottleneck backbones)
+and the model's activation; its norms stay batchnorm, as the
+reference's (`emsanet_tpu/models/context.py:135-152`). Tensors are NCHW.
 """
 
 from __future__ import annotations
@@ -41,14 +43,17 @@ class PyramidPoolingModule(nn.Module):
     """PPM: pooled branches (1x1 conv + BN + ReLU each), upsampled back,
     concatenated with the input and fused by a 1x1 conv."""
 
-    def __init__(self, name: str, cin: int = 512, upsampling: str = "bilinear"):
+    def __init__(self, name: str, cin: int = 512, upsampling: str = "bilinear",
+                 activation: str = "relu"):
         super().__init__()
         self.bins = bins_for(name)
         self.upsampling = upsampling
         reduction = cin // len(self.bins)
         for i in range(len(self.bins)):
-            setattr(self, f"branch{i}", ConvNormAct(cin, reduction, (1, 1)))
-        self.fuse = ConvNormAct(cin + reduction * len(self.bins), cin, (1, 1))
+            setattr(self, f"branch{i}", ConvNormAct(
+                cin, reduction, (1, 1), activation=activation))
+        self.fuse = ConvNormAct(cin + reduction * len(self.bins), cin, (1, 1),
+                                activation=activation)
 
     def forward(self, x: torch.Tensor):
         n, c, h, w = x.shape
@@ -72,10 +77,11 @@ class NoContextModule(nn.Module):
         return x, (x.mean(dim=(2, 3), keepdim=True),)
 
 
-def get_context_module(name: str, cin: int, upsampling: str) -> nn.Module:
+def get_context_module(name: str, cin: int, upsampling: str,
+                       activation: str = "relu") -> nn.Module:
     if name == "none":
         return NoContextModule()
-    return PyramidPoolingModule(name, cin, upsampling)
+    return PyramidPoolingModule(name, cin, upsampling, activation)
 
 
 def context_reduction_channels(name: str, cin: int) -> int:

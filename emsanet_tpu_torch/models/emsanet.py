@@ -1,10 +1,11 @@
 """EMSANet model assembly (counterpart: `emsanet_tpu/models/emsanet.py`).
 
-Forward: dual encoder with SE fusion -> PPM context module on the RGB
-branch -> semantic and instance dense decoders and the scene head. The
-input batch holds NHWC 'rgb' (N, H, W, 3) and 'depth' (N, H, W, 1)
-normalized floats; the output dict matches the flax model's key for key,
-with NHWC tensors.
+Forward: encoder (dual with SE fusion, one modality, or RGBD: rgb and
+depth concatenated on the channels) -> PPM context module on the RGB
+branch, or else on the only one -> the semantic, instance and normal
+decoders (dense or MLP) and the scene head. The input batch holds NHWC
+'rgb' (N, H, W, 3) and / or 'depth' (N, H, W, 1) normalized floats; the
+output dict matches the flax model's key for key, with NHWC tensors.
 
 `EMSANet(cfg, ds, train=True)` is the training model: its dense decoders
 carry the side-output heads of multiscale supervision, and in train mode
@@ -21,7 +22,11 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from emsanet_tpu_torch.config import ModelConfig, validate_for_port
+from emsanet_tpu_torch.config import (
+    DENSE_TASKS,
+    ModelConfig,
+    validate_for_port,
+)
 from emsanet_tpu_torch.datasets.metadata import DatasetConfig
 from emsanet_tpu_torch.device import resolve_device
 from emsanet_tpu_torch.models.context import (
@@ -30,6 +35,7 @@ from emsanet_tpu_torch.models.context import (
 )
 from emsanet_tpu_torch.models.decoder import (
     DenseDecoder,
+    MLPDecoder,
     SceneClassificationHead,
 )
 from emsanet_tpu_torch.models.encoder import FusedEncoder
@@ -37,7 +43,6 @@ from emsanet_tpu_torch.ops import decoder_trunk as trunk_ops
 from emsanet_tpu_torch.ops import param_cache
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_SKIP_CHANNELS = {4: 64, 8: 128, 16: 256, 32: 512}
 
 
 class EMSANet(nn.Module):
@@ -46,48 +51,63 @@ class EMSANet(nn.Module):
     def __init__(self, cfg: ModelConfig, dataset_config: DatasetConfig,
                  train: bool = False):
         super().__init__()
-        cfg = validate_for_port(cfg, train=train)
+        cfg = validate_for_port(cfg)
         self.cfg = cfg
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.encoder = FusedEncoder(cfg)
-        c_enc = FusedEncoder.n_channels_out
+        c_enc = self.encoder.n_channels_out
         self.context_module = get_context_module(
-            cfg.context_module, c_enc, cfg.upsampling_context_module)
-        skip_channels = {d: _SKIP_CHANNELS[d]
-                         for d in cfg.encoder_decoder_skip_downsamplings}
+            cfg.context_module, c_enc, cfg.upsampling_context_module,
+            cfg.activation)
+        skip_channels = self.encoder.skips_n_channels
         zero_init = not cfg.no_zero_init_decoder_residuals
-        for task in ("semantic", "instance"):
+        for task in DENSE_TASKS:
             if task not in cfg.tasks:
                 continue
             extra: Dict[str, Any] = {}
             if task == "semantic":
                 extra["n_classes"] = (
                     dataset_config.n_semantic_classes_without_void)
-            else:
+            elif task == "instance":
                 extra.update(
                     with_orientation="orientation" in cfg.tasks,
                     sigmoid_for_center=cfg.instance_sigmoid_for_center,
                     tanh_for_offset=cfg.instance_tanh_for_offset,
                 )
-            setattr(self, f"{task}_decoder", DenseDecoder(
-                task, c_enc,
-                n_channels=getattr(cfg, f"{task}_decoder_n_channels"),
-                downsamplings=getattr(cfg, f"{task}_decoder_downsamplings"),
-                n_blocks=getattr(cfg, f"{task}_decoder_n_blocks"),
-                fusion=getattr(cfg, f"{task}_encoder_decoder_fusion"),
-                skip_channels=skip_channels,
-                upsampling=getattr(cfg, f"{task}_decoder_upsampling"),
-                prediction_upsampling=cfg.upsampling_prediction,
-                zero_init_residual=zero_init,
-                head_decode_fusion=cfg.head_decode_fusion,
-                block_dropout_p=getattr(
-                    cfg, f"{task}_decoder_block_dropout_p"),
-                side_outputs=train and bool(
-                    cfg.task_side_output_downscales(task)),
-                fused_training=cfg.fused_training,
-                fused_train_head=cfg.fused_training and cfg.fused_train_head,
-                **extra,
-            ))
+            common = dict(normalization=cfg.decoder_normalization,
+                          activation=cfg.activation,
+                          fused_inference=cfg.fused_inference, **extra)
+            if getattr(cfg, f"{task}_decoder") != "emsanet":
+                decoder = MLPDecoder(
+                    task, c_enc, skip_channels, cfg.upsampling_prediction,
+                    dropout_p=getattr(cfg, f"{task}_decoder_dropout_p"),
+                    **common)
+            else:
+                decoder = DenseDecoder(
+                    task, c_enc,
+                    n_channels=getattr(cfg, f"{task}_decoder_n_channels"),
+                    downsamplings=getattr(cfg,
+                                          f"{task}_decoder_downsamplings"),
+                    n_blocks=getattr(cfg, f"{task}_decoder_n_blocks"),
+                    fusion=getattr(cfg, f"{task}_encoder_decoder_fusion"),
+                    skip_channels=skip_channels,
+                    upsampling=getattr(cfg, f"{task}_decoder_upsampling"),
+                    prediction_upsampling=cfg.upsampling_prediction,
+                    zero_init_residual=zero_init,
+                    head_decode_fusion=cfg.head_decode_fusion,
+                    block_dropout_p=getattr(
+                        cfg, f"{task}_decoder_block_dropout_p"),
+                    side_outputs=train and bool(
+                        cfg.task_side_output_downscales(task)),
+                    fused_training=cfg.fused_training,
+                    fused_train_head=(task == "semantic"
+                                      and cfg.fused_training
+                                      and cfg.fused_train_head),
+                    block=getattr(cfg, f"{task}_decoder_block"),
+                    train_polyphase=cfg.train_polyphase_upsampling,
+                    **common,
+                )
+            setattr(self, f"{task}_decoder", decoder)
         if "scene" in cfg.tasks:
             self.scene_decoder = SceneClassificationHead(
                 context_reduction_channels(cfg.context_module, c_enc),
@@ -100,18 +120,29 @@ class EMSANet(nn.Module):
         with torch.no_grad():
             return self._forward(batch)
 
-    def _forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    def encoder_inputs(self, batch: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """The encoder's inputs in the compute dtype: 'rgbd' as rgb and
+        depth concatenated on the channels (`emsanet.py:194-204`), else
+        the modalities the encoder takes."""
         dt = self.compute_dtype
-        feats, skips = self.encoder(
-            {m: batch[m].to(dt) for m in ("rgb", "depth")})
-        con_out, con_context = self.context_module(feats["rgb"])
+        if self.encoder.modalities == ("rgbd",):
+            return {"rgbd": torch.cat([batch["rgb"].to(dt),
+                                       batch["depth"].to(dt)], dim=-1)}
+        return {m: batch[m].to(dt) for m in self.encoder.modalities}
+
+    def _forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        feats, skips = self.encoder(self.encoder_inputs(batch))
+        con_out, con_context = self.context_module(
+            feats["rgb"] if "rgb" in feats else next(iter(feats.values())))
         # the decoder megakernel: one call computes every dense decoder's
         # module stack; each decoder then runs only its head
         trunk: Dict[str, torch.Tensor] = {}
-        if not self.training and self.cfg.decoder_megakernel != "off":
+        if (not self.training and self.cfg.fused_inference
+                and self.cfg.decoder_megakernel != "off"):
             trunk = self._trunk_megakernel(con_out, skips)
         outputs: Dict[str, Any] = {}
-        for task in ("semantic", "instance"):
+        for task in DENSE_TASKS:
             if task in self.cfg.tasks:
                 outputs[task] = getattr(self, f"{task}_decoder")(
                     con_out, skips, trunk.get(task))
@@ -133,7 +164,7 @@ class EMSANet(nn.Module):
         MAX_BATCH; 'on' at any batch, on the CPU through the plain
         version."""
         cfg = self.cfg
-        tasks = [t for t in ("semantic", "instance") if t in cfg.tasks
+        tasks = [t for t in DENSE_TASKS if t in cfg.tasks
                  and getattr(cfg, f"{t}_decoder") == "emsanet"]
         if not tasks:
             return {}

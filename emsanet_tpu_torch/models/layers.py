@@ -1,8 +1,14 @@
-"""Shared layers: BatchNorm, conv+norm+act, SE attention, residual blocks.
+"""Shared layers: norms, activations, conv+norm+act, SE attention,
+residual blocks.
 
 Counterpart of `emsanet_tpu/models/layers.py`. Module and parameter
-names follow the flax tree (`Conv_0`, `Norm_0.BatchNorm_0`, ...), so the
-flax -> PyTorch weight map (`weights.py`) is close to the identity.
+names follow the flax tree (`Conv_0`, `Norm_0.BatchNorm_0`,
+`Norm_0.LayerNorm_0`, ...), so the flax -> PyTorch weight map
+(`weights.py`) is close to the identity. Activations: 'relu', and
+'swish' / 'silu' (x * sigmoid(x)). Norms: 'batchnorm' (flax's
+BatchNorm), 'layernorm' (flax's LayerNorm: over the channels of each
+pixel, eps 1e-6) and 'groupnorm' (flax's GroupNorm: 32 groups, eps
+1e-6); each residual block takes both.
 Tensors inside the model are NCHW (channels_last in memory); the
 kernels take the NHWC view of the same memory.
 
@@ -20,7 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +39,9 @@ from emsanet_tpu_torch.ops.stem import BN_EPS, fold_bn
 
 # flax: running = momentum * running + (1 - momentum) * batch
 BN_MOMENTUM = 0.9
+# flax LayerNorm's and GroupNorm's epsilon (torch's defaults are 1e-5)
+LN_EPS = 1e-6
+GROUPS = 32  # flax GroupNorm's num_groups, as the JAX package builds it
 
 _DROPOUT_GENERATOR: contextvars.ContextVar[Optional[torch.Generator]] = (
     contextvars.ContextVar("dropout_generator", default=None))
@@ -110,15 +119,81 @@ class BatchNorm(nn.Module):
         return self.weight, self.bias, self.running_mean, self.running_var
 
 
-class Norm(nn.Module):
-    """flax `Norm` wrapper: one child `BatchNorm_0`."""
+class LayerNorm(nn.Module):
+    """flax `nn.LayerNorm()` of NCHW maps: each pixel normalized over its
+    channels (E[x^2] - E[x]^2, clipped at 0, in f32), eps 1e-6, then
+    scaled and shifted per channel. Not `F.layer_norm`, which would
+    normalize an NCHW tensor over its last axes."""
 
     def __init__(self, c: int):
         super().__init__()
-        self.BatchNorm_0 = BatchNorm(c)
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.BatchNorm_0(x)
+        return _normalize(x, x.to(train_ops.acc_dtype(x.dtype))[:, None],
+                          (2,), self.weight, self.bias)
+
+
+class GroupNorm(nn.Module):
+    """flax `nn.GroupNorm(num_groups=32)`: statistics over the pixels and
+    the C / 32 channels of each group of a sample, eps 1e-6."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        if c % GROUPS:
+            raise ValueError(f"GroupNorm needs channels divisible by "
+                             f"{GROUPS}, got {c}")
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        xf = x.to(train_ops.acc_dtype(x.dtype)).reshape(n, GROUPS, -1, h, w)
+        return _normalize(x, xf, (2, 3, 4), self.weight, self.bias)
+
+
+def _normalize(x: torch.Tensor, xf: torch.Tensor, dims, weight, bias
+               ) -> torch.Tensor:
+    """(xf - mean) / sqrt(var + 1e-6) over `dims` of the grouped f32 view
+    `xf` of x (N, C, H, W), then the per-channel affine, in x's dtype."""
+    mean = xf.mean(dims, keepdim=True)
+    var = torch.clamp_min((xf * xf).mean(dims, keepdim=True) - mean * mean,
+                          0.0)
+    y = ((xf - mean) * torch.rsqrt(var + LN_EPS)).reshape(x.shape)
+    return (y * weight[:, None, None] + bias[:, None, None]).to(x.dtype)
+
+
+NORM_CLASSES = {"batchnorm": ("BatchNorm_0", BatchNorm),
+                "layernorm": ("LayerNorm_0", LayerNorm),
+                "groupnorm": ("GroupNorm_0", GroupNorm)}
+
+
+class Norm(nn.Module):
+    """flax `Norm` wrapper: one child `BatchNorm_0`, `LayerNorm_0` or
+    `GroupNorm_0`, by `kind`."""
+
+    def __init__(self, c: int, kind: str = "batchnorm"):
+        super().__init__()
+        name, cls = NORM_CLASSES[kind]
+        setattr(self, name, cls(c))
+        self._child = name
+
+    @property
+    def inner(self) -> nn.Module:
+        return getattr(self, self._child)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.inner(x)
+
+
+def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """'relu', or 'swish' / 'silu' = x * sigmoid(x) (flax's nn.swish)."""
+    if name == "relu":
+        return F.relu
+    if name in ("swish", "silu"):
+        return F.silu
+    raise ValueError(f"Unknown activation '{name}'")
 
 
 def conv(cin: int, cout: int, kernel=(3, 3), stride=(1, 1), bias=False,
@@ -131,74 +206,90 @@ def conv(cin: int, cout: int, kernel=(3, 3), stride=(1, 1), bias=False,
 
 
 class ConvNormAct(nn.Module):
-    """conv (no bias) -> BatchNorm -> ReLU."""
+    """conv (no bias) -> norm -> activation."""
 
-    def __init__(self, cin: int, cout: int, kernel=(3, 3), stride=(1, 1)):
+    def __init__(self, cin: int, cout: int, kernel=(3, 3), stride=(1, 1),
+                 normalization: str = "batchnorm", activation: str = "relu"):
         super().__init__()
         self.Conv_0 = conv(cin, cout, kernel, stride)
-        self.Norm_0 = Norm(cout)
+        self.Norm_0 = Norm(cout, normalization)
+        self.act = get_activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.Norm_0(self.Conv_0(x)))
+        return self.act(self.Norm_0(self.Conv_0(x)))
 
 
 class SqueezeExcitation(nn.Module):
-    """Global average pool -> FC(C/16) -> ReLU -> FC(C) -> sigmoid gate."""
+    """Global average pool -> FC(C/16) -> act -> FC(C) -> sigmoid gate."""
 
-    def __init__(self, c: int, reduction: int = 16):
+    def __init__(self, c: int, reduction: int = 16,
+                 activation: str = "relu"):
         super().__init__()
         hidden = max(c // reduction, 1)
         self.Dense_0 = Linear(c, hidden)
         self.Dense_1 = Linear(hidden, c)
+        self.act = get_activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=(2, 3))
-        s = self.Dense_1(F.relu(self.Dense_0(s)))
+        s = self.Dense_1(self.act(self.Dense_0(s)))
         return x * torch.sigmoid(s)[:, :, None, None]
 
 
 class NonBottleneck1D(nn.Module):
-    """Factorized residual block (ERFNet NBt1D), inference form.
+    """Factorized residual block (ERFNet NBt1D).
 
     The stride applies to the first 3x1/1x3 pair, with a 1x1-conv
     shortcut when the stride or width changes. With
-    `zero_init_residual` the second norm is a bare `BatchNorm_0` (the
-    flax naming of that variant). Element-wise dropout sits between the
+    `zero_init_residual` and batchnorm the second norm is a bare
+    `BatchNorm_0` (the flax naming of that variant, whose scale starts
+    at 0); otherwise `Norm_1`. Element-wise dropout sits between the
     second norm and the residual add; it is an identity at inference.
     """
 
+    expansion = 1
+
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 zero_init_residual: bool = False, dropout_p: float = 0.0):
+                 zero_init_residual: bool = False, dropout_p: float = 0.0,
+                 normalization: str = "batchnorm",
+                 activation: str = "relu"):
         super().__init__()
         self.features = features
         self.stride = stride
         self.dropout_p = dropout_p
-        self.zero_init_residual = zero_init_residual
+        self.normalization = normalization
+        self.activation = activation
+        self.act = get_activation(activation)
+        self.zero_init_residual = (zero_init_residual
+                                   and normalization == "batchnorm")
         f = features
         self.Conv_0 = conv(cin, f, (3, 1), (stride, 1), bias=True)
         self.Conv_1 = conv(f, f, (1, 3), (1, stride), bias=True)
-        self.Norm_0 = Norm(f)
+        self.Norm_0 = Norm(f, normalization)
         self.Conv_2 = conv(f, f, (3, 1), bias=True)
         self.Conv_3 = conv(f, f, (1, 3), bias=True)
-        if zero_init_residual:
+        if self.zero_init_residual:
             self.BatchNorm_0 = BatchNorm(f)
         else:
-            self.Norm_1 = Norm(f)
+            self.Norm_1 = Norm(f, normalization)
         self.has_shortcut = stride != 1 or cin != f
         if self.has_shortcut:
             self.Conv_4 = conv(cin, f, (1, 1), (stride, stride))
-            norm_name = "Norm_1" if zero_init_residual else "Norm_2"
-            setattr(self, norm_name, Norm(f))
+            norm_name = "Norm_1" if self.zero_init_residual else "Norm_2"
+            setattr(self, norm_name, Norm(f, normalization))
             self._shortcut_norm = norm_name
 
-    def second_norm(self) -> BatchNorm:
+    def second_norm(self) -> nn.Module:
+        """The residual branch's last norm (BatchNorm, LayerNorm or
+        GroupNorm module)."""
         return self.BatchNorm_0 if self.zero_init_residual else (
-            self.Norm_1.BatchNorm_0)
+            self.Norm_1.inner)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self.Conv_0(x))
-        h = F.relu(self.Norm_0(self.Conv_1(h)))
-        h = F.relu(self.Conv_2(h))
+        act = self.act
+        h = act(self.Conv_0(x))
+        h = act(self.Norm_0(self.Conv_1(h)))
+        h = act(self.Conv_2(h))
         h = self.second_norm()(self.Conv_3(h))
         if self.training and self.dropout_p > 0.0:
             h = train_ops.dropout(h, self.dropout_p,
@@ -206,35 +297,78 @@ class NonBottleneck1D(nn.Module):
         residual = x
         if self.has_shortcut:
             residual = getattr(self, self._shortcut_norm)(self.Conv_4(x))
-        return F.relu(h + residual)
+        return act(h + residual)
 
 
 class BasicBlock(nn.Module):
     """ResNet basic block (3x3 + 3x3) with flax naming."""
 
+    expansion = 1
+
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 zero_init_residual: bool = False, dropout_p: float = 0.0):
+                 zero_init_residual: bool = False, dropout_p: float = 0.0,
+                 normalization: str = "batchnorm",
+                 activation: str = "relu"):
         super().__init__()
         # neither is used by the flax BasicBlock, which has no dropout site
         del zero_init_residual, dropout_p
         self.ConvNormAct_0 = ConvNormAct(cin, features, (3, 3),
-                                         (stride, stride))
+                                         (stride, stride), normalization,
+                                         activation)
         self.Conv_0 = conv(features, features, (3, 3))
-        self.Norm_0 = Norm(features)
+        self.Norm_0 = Norm(features, normalization)
+        self.act = get_activation(activation)
         self.has_shortcut = stride != 1 or cin != features
         if self.has_shortcut:
             self.Conv_1 = conv(cin, features, (1, 1), (stride, stride))
-            self.Norm_1 = Norm(features)
+            self.Norm_1 = Norm(features, normalization)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.Norm_0(self.Conv_0(self.ConvNormAct_0(x)))
         residual = x
         if self.has_shortcut:
             residual = self.Norm_1(self.Conv_1(x))
-        return F.relu(h + residual)
+        return self.act(h + residual)
 
 
-BLOCK_CLASSES = {"nonbottleneck1d": NonBottleneck1D, "basicblock": BasicBlock}
+class Bottleneck(nn.Module):
+    """ResNet bottleneck block (1x1 -> 3x3 (stride) -> 1x1 to 4 x
+    `features`) with flax naming (`emsanet_tpu/models/layers.py:258`)."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 zero_init_residual: bool = False, dropout_p: float = 0.0,
+                 normalization: str = "batchnorm",
+                 activation: str = "relu"):
+        super().__init__()
+        del zero_init_residual, dropout_p  # unused by the flax block too
+        out = features * self.expansion
+        self.ConvNormAct_0 = ConvNormAct(cin, features, (1, 1),
+                                         normalization=normalization,
+                                         activation=activation)
+        self.ConvNormAct_1 = ConvNormAct(features, features, (3, 3),
+                                         (stride, stride), normalization,
+                                         activation)
+        self.Conv_0 = conv(features, out, (1, 1))
+        self.Norm_0 = Norm(out, normalization)
+        self.act = get_activation(activation)
+        self.has_shortcut = stride != 1 or cin != out
+        if self.has_shortcut:
+            self.Conv_1 = conv(cin, out, (1, 1), (stride, stride))
+            self.Norm_1 = Norm(out, normalization)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.ConvNormAct_1(self.ConvNormAct_0(x))
+        h = self.Norm_0(self.Conv_0(h))
+        residual = x
+        if self.has_shortcut:
+            residual = self.Norm_1(self.Conv_1(x))
+        return self.act(h + residual)
+
+
+BLOCK_CLASSES = {"nonbottleneck1d": NonBottleneck1D, "basicblock": BasicBlock,
+                 "bottleneck": Bottleneck}
 
 
 def stack_chain_params(
@@ -311,23 +445,31 @@ def _tail_fused_train(tail: Sequence[NonBottleneck1D],
     return out.permute(0, 3, 1, 2)
 
 
+def _kernel_block(b: nn.Module) -> bool:
+    """The chain and pair kernels' block: a stride-1 NonBottleneck1D with
+    batchnorm and relu (the JAX package's gate, `layers.py:337-345`)."""
+    return (isinstance(b, NonBottleneck1D) and b.stride == 1
+            and b.normalization == "batchnorm" and b.activation == "relu")
+
+
 def apply_blocks_fused(blocks: Sequence[nn.Module], x: torch.Tensor,
-                       fused_train: bool = False) -> torch.Tensor:
+                       fused_train: bool = False,
+                       fused: bool = True) -> torch.Tensor:
     """Run a residual-block sequence, sending the stride-1 NBt1D tail to a
-    kernel: at inference the chain kernel (`ops/nbt1d_chain.py`), in
-    train mode, with `fused_train`, the train pairs (`ops/nbt1d_train.py`).
+    kernel: at inference, with `fused` (`fused_inference`), the chain
+    kernel (`ops/nbt1d_chain.py`), in train mode, with `fused_train`, the
+    train pairs (`ops/nbt1d_train.py`).
 
     The tail is the maximal trailing run of stride-1 NonBottleneck1D
-    blocks whose input width equals their width. At inference, unlike
-    the JAX package, whose chain gate (`nbt1d_chain.py:46-71`) encodes a
-    TPU v5e speed finding, every such tail takes the kernel. In training
-    the JAX package's gate (`nbt1d_train.pairs_supported`) decides, as
-    there (`layers.py:378-382`).
+    blocks with batchnorm and relu whose input width equals their width.
+    At inference, unlike the JAX package, whose chain gate
+    (`nbt1d_chain.py:46-71`) encodes a TPU v5e speed finding, every such
+    tail takes the kernel. In training the JAX package's gate
+    (`nbt1d_train.pairs_supported`) decides, as there (`layers.py:378-382`).
     """
     tail_start = len(blocks)
     for i in reversed(range(len(blocks))):
-        b = blocks[i]
-        if isinstance(b, NonBottleneck1D) and b.stride == 1:
+        if _kernel_block(blocks[i]):
             tail_start = i
         else:
             break
@@ -340,7 +482,7 @@ def apply_blocks_fused(blocks: Sequence[nn.Module], x: torch.Tensor,
     if c != tail[0].features or (
         tail[0].training
         and not (fused_train and train_ops.pairs_supported(h, w, c))
-    ):
+    ) or (not tail[0].training and not fused):
         for b in tail:
             x = b(x)
         return x

@@ -2,18 +2,20 @@
 `emsanet_tpu/models/upsampling.py`).
 
 'learned-3x3-zeropad' is nearest x2 followed by a zero-padded depthwise
-3x3 conv (`depthwise`, initialized to mimic bilinear). At inference it
-runs in its exact polyphase form (`ops/polyphase_upsample.py`) where the
-input has at least 60*80 pixels, the gate of the JAX package
-(`upsampling.py:125`); below it, the nearest + conv form runs. With
+3x3 conv (`depthwise`, initialized to mimic bilinear). At inference with
+`fused` (`fused_inference`), and in training with `train_polyphase`
+(`train_polyphase_upsampling`; differentiable), it runs in its exact
+polyphase form (`ops/polyphase_upsample.py`) where the input has at
+least 60*80 pixels, the gate of the JAX package (`upsampling.py:120-126`);
+otherwise the nearest + conv form runs. With
 `defer_interleave`, the polyphase path returns the (N, 4C, H, W)
 parity-domain output instead of interleaving it, which the semantic
 head's consumer reads as `logits_polyphase`. With `defer_conv`
 (`upsampling.py:137-138`), it returns `(x, depthwise weight)` without
 convolving: postprocessing runs the stage in a kernel
 (`ops/semantic_decode.py`, `ops/instance_head.py`). In train mode the
-nearest + conv form always runs, as in the JAX package without
-`train_polyphase_upsampling`, and with `defer_conv_train`
+nearest + conv form runs unless `train_polyphase`, and with
+`defer_conv_train`
 (`upsampling.py:109-118`) the stage returns `(x, depthwise weight)` for
 the fused head loss (`ops/semantic_train_head.py`). Tensors are NCHW.
 """
@@ -63,9 +65,12 @@ class Upsampling(nn.Module):
 
     def __init__(self, method: str, channels: int,
                  defer_interleave: bool = False, defer_conv: bool = False,
-                 defer_conv_train: bool = False):
+                 defer_conv_train: bool = False, fused: bool = False,
+                 train_polyphase: bool = False):
         super().__init__()
         self.method = method
+        self.fused = fused
+        self.train_polyphase = train_polyphase
         self.defer_interleave = defer_interleave
         self.defer_conv = defer_conv
         self.defer_conv_train = defer_conv_train
@@ -86,16 +91,16 @@ class Upsampling(nn.Module):
         if self.method == "bilinear":
             return resize_bilinear(x, 2 * h, 2 * w)
         weight = self.depthwise.weight
-        if self.training:
-            if self.defer_conv_train and self.method == "learned-3x3-zeropad":
-                return x, weight
-        elif self.method == "learned-3x3-zeropad" and (
-            h * w >= POLYPHASE_MIN_PIXELS
-        ):
-            if self.defer_conv:
-                return x, weight
-            if self.defer_interleave:
-                return upsample2x_depthwise_polyphase_deferred(x, weight)
+        zeropad = self.method == "learned-3x3-zeropad"
+        if self.training and self.defer_conv_train and zeropad:
+            return x, weight
+        if zeropad and h * w >= POLYPHASE_MIN_PIXELS and (
+                self.train_polyphase if self.training else self.fused):
+            if not self.training:
+                if self.defer_conv:
+                    return x, weight
+                if self.defer_interleave:
+                    return upsample2x_depthwise_polyphase_deferred(x, weight)
             return upsample2x_depthwise_polyphase(x, weight)
         weight = weight.to(x.dtype)  # f32 parameters of a bf16 train model
         up = nearest_x2(x)

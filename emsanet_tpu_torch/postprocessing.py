@@ -5,8 +5,11 @@ fixed-shape, batched tensor code on the device. Center NMS by max
 pooling, top-k padded to `top_k` centers with a validity mask,
 duplicate-center suppression, pixel grouping (`ops/grouping.py`), the
 Panoptic-DeepLab merge by majority vote (`ops/segment_kernels.py`),
-per-instance orientations and the scene softmax. Tensors are NHWC /
-(N, H, W), like the JAX package.
+per-instance orientations and the scene softmax; the normal map passes
+through. Tensors are NHWC / (N, H, W), like the JAX package. Without
+`fused_inference` no head defers, and the full-resolution pipeline below
+runs on the decoders' maps (:804-1054), through the same grouping and
+segment kernels.
 
 Deferred heads (`decode_input`, the 'decode*' modes) are dispatched as
 the JAX package does (:825-935):
@@ -601,6 +604,8 @@ def postprocess(
                     use_orientations[inst_sem.long()]
                     & results["panoptic_instance_meta_valid"])
 
+    if "normal" in outputs:
+        results["normal"] = outputs["normal"]["normal"]
     if "scene" in outputs:
         scene = postprocess_scene(outputs["scene"]["logits"])
         results["scene_class_idx"] = scene["class_idx"]
@@ -745,6 +750,8 @@ def _postprocess_planes(
                 use_orientations[inst_sem.long()]
                 & results["panoptic_instance_meta_valid"])
 
+    if "normal" in outputs:
+        results["normal"] = outputs["normal"]["normal"]
     if "scene" in outputs:
         scene = postprocess_scene(outputs["scene"]["logits"])
         results["scene_class_idx"] = scene["class_idx"]

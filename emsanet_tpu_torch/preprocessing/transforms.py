@@ -510,6 +510,27 @@ class MultiscaleSupervisionGenerator:
         return sample
 
 
+class NormalMaskGenerator:
+    """`normal_mask`: the pixels whose ground-truth normal has a norm
+    above 0.5 (prepared normals mark invalid pixels by the zero vector),
+    for the sample and each `_down_{s}` sub-sample
+    (`emsanet_tpu/preprocessing/transforms.py:536-562`)."""
+
+    threshold = 0.5
+
+    def _apply(self, d: dict):
+        if "normal" in d and isinstance(d["normal"], np.ndarray):
+            n = d["normal"].astype(np.float32)
+            d["normal_mask"] = np.linalg.norm(n, axis=-1) > self.threshold
+
+    def __call__(self, sample: dict) -> dict:
+        self._apply(sample)
+        for k, v in sample.items():
+            if k.startswith("_down_") and isinstance(v, dict):
+                self._apply(v)
+        return sample
+
+
 def _normalize_rgb_plain(rgb: np.ndarray) -> np.ndarray:
     return (rgb.astype(np.float32) / 255.0 - RGB_MEAN) / RGB_STD
 
@@ -666,6 +687,8 @@ def get_preprocessor(cfg, dataset_config, phase: str,
             keys.extend(["semantic", "instance"])
             if "orientation" in m.tasks:
                 keys.append("orientations")
+        if "normal" in m.tasks:
+            keys.append("normal")
         transforms.append(MultiscaleSupervisionGenerator(
             multiscale_downscales, tuple(dict.fromkeys(keys))))
     else:
@@ -681,6 +704,8 @@ def get_preprocessor(cfg, dataset_config, phase: str,
     if "orientation" in m.tasks:
         transforms.append(OrientationTargetGenerator(
             dataset_config.classes_use_orientations))
+    if "normal" in m.tasks:
+        transforms.append(NormalMaskGenerator())
     if "rgb" in m.input_modalities or "rgbd" in m.input_modalities:
         transforms.append(NormalizeRGB())
     if "depth" in m.input_modalities or "rgbd" in m.input_modalities:

@@ -2,14 +2,13 @@
 predictions, and each epoch's logs and artifacts.
 
 A copy of `emsanet_tpu/task_helper.py` (the semantic, scene, instance,
-panoptic and orientation helpers and `get_task_helpers`). The protocol is
+panoptic, orientation and normal helpers and `get_task_helpers`). The protocol is
 `initialize()`, `validation_step(batch, predictions)`,
 `validation_epoch_end() -> (artifacts, logs)`, with `batch` the collated
 numpy batch and `predictions` numpy arrays of the eval step's outputs
 (`PREDICTION_KEYS` are the ones the helpers read). They run on the host.
 Nearest resizes of id maps to the ground truth's resolution run in the
-host library (`native.resize_nearest_i32`), as in the JAX package. The
-normal task's helper is not ported: the port refuses the normal decoder.
+host library (`native.resize_nearest_i32`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +18,6 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from emsanet_tpu_torch import native
-from emsanet_tpu_torch.config import NotPortedError
 from emsanet_tpu_torch.metrics import (
     LABEL_DIVISOR,
     BalancedAccuracy,
@@ -35,7 +33,7 @@ PREDICTION_KEYS = (
     "semantic_segmentation_idx", "scene_class_idx",
     "instance_segmentation", "instance_segmentation_gt_foreground",
     "panoptic_segmentation_deeplab", "orientations_instance",
-    "instance_orientation", "instance_orientation_planes",
+    "instance_orientation", "instance_orientation_planes", "normal",
 )
 
 
@@ -336,6 +334,31 @@ class OrientationTaskHelper(TaskHelperBase):
         return {}, {"orientation_mae_gt_deg": self.mae.compute()}
 
 
+class NormalTaskHelper(TaskHelperBase):
+    """Mean angular error in degrees between predicted and ground-truth
+    normals over the pixels with a valid (norm > 0.5) ground truth
+    (`normal_mae_deg`; `emsanet_tpu/task_helper.py:325-344`)."""
+
+    def initialize(self):
+        self._err_sum = 0.0
+        self._count = 0
+
+    def validation_step(self, batch, predictions):
+        pred = np.asarray(predictions["normal"])
+        target = np.asarray(batch["normal"])
+        valid = np.asarray(
+            batch.get("_valid_mask", np.ones(pred.shape[0], bool)))
+        pred, target = pred[valid], target[valid]
+        mask = np.linalg.norm(target, axis=-1) > 0.5
+        cos = np.clip(np.sum(pred * target, -1), -1, 1)[mask]
+        self._err_sum += float(np.degrees(np.arccos(cos)).sum())
+        self._count += int(mask.sum())
+
+    def validation_epoch_end(self):
+        mae = self._err_sum / max(self._count, 1)
+        return {}, {"normal_mae_deg": mae}
+
+
 def get_task_helpers(cfg, dataset_config) -> List[TaskHelperBase]:
     """One helper per task, in the reference's order. cfg: EMSANetConfig;
     dataset_config: `datasets.metadata.DatasetConfig`."""
@@ -361,5 +384,5 @@ def get_task_helpers(cfg, dataset_config) -> List[TaskHelperBase]:
     if "scene" in tasks:
         helpers.append(SceneTaskHelper(n_scene))
     if "normal" in tasks:
-        raise NotPortedError("not ported yet: the normal task's helper")
+        helpers.append(NormalTaskHelper())
     return helpers

@@ -45,9 +45,13 @@ checkpoint or a JAX package checkpoint through the transfer rules of
 and ground truth into `examples/epoch_XXXX/` (or
 `--visualization-output-path`), as `main.py` does.
 
-Flags take `emsanet_tpu/utils/cli.py`'s names. Refused, with an error:
-`fused_inference=False` (the config) and wandb logging. It runs on the
-card unless `--device cpu` is given, and raises without one.
+Flags take `emsanet_tpu/utils/cli.py`'s names, the model group's whole
+(modalities, backbones and blocks, activation, normalizations, context,
+every decoder's type, blocks, widths, fusion and upsampling, the
+instance head, the deprecated aliases); `--fused-inference` sends
+validation through the kernels, as there. Refused, with an error: wandb
+logging and `--n-devices` above 1. It runs on the card unless `--device
+cpu` is given, and raises without one.
 """
 
 from __future__ import annotations
@@ -67,6 +71,17 @@ import numpy as np
 import torch
 
 from emsanet_tpu_torch.config import (
+    DENSE_TASKS,
+    KNOWN_ACTIVATIONS,
+    KNOWN_BLOCKS,
+    KNOWN_CONTEXT_MODULES,
+    KNOWN_DECODERS,
+    KNOWN_ENCODER_DECODER_FUSIONS,
+    KNOWN_ENCODER_FUSIONS,
+    KNOWN_MODALITIES,
+    KNOWN_NORMALIZATIONS,
+    KNOWN_TASKS,
+    KNOWN_UPSAMPLINGS,
     DataConfig,
     EMSANetConfig,
     ModelConfig,
@@ -130,32 +145,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "the run directory's examples/)")
     p.add_argument("--wandb-mode", default="disabled",
                    choices=("online", "offline", "disabled"))
-    p.add_argument("--tasks", nargs="+", default=("semantic",))
-    p.add_argument("--enable-panoptic", action="store_true")
-    p.add_argument("--input-height", type=int, default=480)
-    p.add_argument("--input-width", type=int, default=640)
-    p.add_argument("--dropout-p", type=float, default=0.1)
-    p.add_argument("--rgb-encoder-backbone", default="resnet34")
-    p.add_argument("--depth-encoder-backbone", default="resnet34")
-    p.add_argument("--no-pretrained-backbone", action="store_true",
-                   help="no effect, as in main.py: a backbone starts from "
-                   "pretrained weights exactly where a file is given")
-    for what in ("", "rgb-", "depth-"):
-        p.add_argument(f"--{what}encoder-backbone-pretrained-weights-"
-                       "filepath", default=None)
-    for task in ("semantic", "instance"):
-        p.add_argument(f"--{task}-decoder-block-dropout-p", type=float,
-                       default=0.2)
-        p.add_argument(f"--{task}-no-multiscale-supervision",
-                       action="store_true")
-    p.add_argument("--instance-center-sigma", type=int, default=8)
-    p.add_argument("--compute-dtype", default="float32",
-                   choices=("float32", "bfloat16"))
+    _add_model_flags(p)
     p.add_argument("--mixed-precision", action="store_true")
     p.add_argument("--fused-training", action="store_true")
     p.add_argument("--fused-inference", action="store_true",
-                   help="the fused inference path of validation (the "
-                   "port's only one; on without the flag too)")
+                   help="validation through the inference kernels (stems, "
+                   "chains, polyphase upsampling, the heads' decode "
+                   "kernels, the decoder trunk)")
     p.add_argument("--head-decode-fusion", default=None,
                    choices=("decode", "decode-both", "decode-planes",
                             "interleave", "auto"))
@@ -173,6 +169,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--instance-center-loss", default="mse",
                    choices=("mse", "bce"))
     p.add_argument("--orientation-kappa", type=float, default=1.0)
+    p.add_argument("--normal-loss", default="l1", choices=("l1",))
     p.add_argument("--semantic-loss-label-smoothing", type=float,
                    default=0.0)
     p.add_argument("--scene-loss-label-smoothing", type=float, default=0.0)
@@ -223,6 +220,131 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _add_model_flags(p: argparse.ArgumentParser) -> None:
+    """The model group of `emsanet_tpu/utils/cli.py:70-230` (without its
+    TPU-only `--remat`)."""
+    p.add_argument("--tasks", nargs="+", default=("semantic",),
+                   choices=KNOWN_TASKS)
+    p.add_argument("--enable-panoptic", action="store_true")
+    p.add_argument("--input-modalities", nargs="+", default=("rgb", "depth"),
+                   choices=KNOWN_MODALITIES)
+    p.add_argument("--input-height", type=int, default=480)
+    p.add_argument("--input-width", type=int, default=640)
+    p.add_argument("--activation", default="relu", choices=KNOWN_ACTIVATIONS)
+    p.add_argument("--dropout-p", type=float, default=0.1)
+    p.add_argument("--encoder-normalization", default="batchnorm",
+                   choices=KNOWN_NORMALIZATIONS)
+    p.add_argument("--encoder-fusion", default="se-add-uni-rgb",
+                   choices=KNOWN_ENCODER_FUSIONS)
+    for mod in KNOWN_MODALITIES:
+        p.add_argument(f"--{mod}-encoder-backbone", default="resnet34",
+                       help="resnet18/34/50/101, resnet18se/34se, each with "
+                       "an optional '-d16'")
+        p.add_argument(f"--{mod}-encoder-backbone-resnet-block",
+                       default="nonbottleneck1d", choices=KNOWN_BLOCKS)
+    p.add_argument("--no-pretrained-backbone", action="store_true",
+                   help="no effect, as in main.py: a backbone starts from "
+                   "pretrained weights exactly where a file is given")
+    for what in ("", "rgb-", "depth-", "rgbd-"):
+        p.add_argument(f"--{what}encoder-backbone-pretrained-weights-"
+                       "filepath", default=None)
+    p.add_argument("--he-init", nargs="+", default=("encoder-fusion",),
+                   choices=("encoder-fusion", "encoder-decoder-fusion",
+                            "context-module", "decoder"))
+    p.add_argument("--no-zero-init-decoder-residuals", action="store_true")
+    p.add_argument("--context-module", default="ppm",
+                   choices=KNOWN_CONTEXT_MODULES)
+    p.add_argument("--upsampling-context-module", default="bilinear",
+                   choices=("nearest", "bilinear"))
+    p.add_argument("--upsampling-prediction", default="learned-3x3-zeropad",
+                   choices=KNOWN_UPSAMPLINGS)
+    p.add_argument("--decoder-normalization", default="batchnorm",
+                   choices=KNOWN_NORMALIZATIONS)
+    p.add_argument("--encoder-decoder-skip-downsamplings", nargs="+",
+                   type=int, default=(4, 8, 16))
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=("float32", "bfloat16"))
+    for task in DENSE_TASKS:
+        p.add_argument(f"--{task}-decoder", default="emsanet",
+                       choices=KNOWN_DECODERS)
+        p.add_argument(f"--{task}-decoder-block", default="nonbottleneck1d",
+                       choices=KNOWN_BLOCKS)
+        p.add_argument(f"--{task}-decoder-block-dropout-p", type=float,
+                       default=0.2)
+        p.add_argument(f"--{task}-decoder-n-blocks", type=int, default=3)
+        p.add_argument(f"--{task}-decoder-dropout-p", type=float,
+                       default=0.1)
+        p.add_argument(f"--{task}-decoder-n-channels", nargs="+", type=int,
+                       default=(512, 256, 128))
+        p.add_argument(f"--{task}-decoder-downsamplings", nargs="+",
+                       type=int, default=(16, 8, 4))
+        p.add_argument(f"--{task}-decoder-upsampling",
+                       default="learned-3x3-zeropad",
+                       choices=KNOWN_UPSAMPLINGS)
+        p.add_argument(f"--{task}-encoder-decoder-fusion", default="add-rgb",
+                       choices=KNOWN_ENCODER_DECODER_FUSIONS)
+        p.add_argument(f"--{task}-no-multiscale-supervision",
+                       action="store_true")
+    # deprecated aliases (the reference's args.py:1268-1315 shim)
+    p.add_argument("--encoder-decoder-fusion", default=None,
+                   choices=KNOWN_ENCODER_DECODER_FUSIONS,
+                   help="[DEPRECATED] sets every decoder's fusion")
+    p.add_argument("--upsampling-decoder", default=None,
+                   choices=KNOWN_UPSAMPLINGS,
+                   help="[DEPRECATED] sets every decoder's upsampling")
+    p.add_argument("--normalization", default=None,
+                   choices=KNOWN_NORMALIZATIONS,
+                   help="[DEPRECATED] sets the encoder's and decoders' "
+                   "normalization")
+    for mod in KNOWN_MODALITIES:
+        p.add_argument(f"--{mod}-encoder-backbone-block", default=None,
+                       choices=KNOWN_BLOCKS,
+                       help=f"[DEPRECATED] --{mod}-encoder-backbone-resnet-"
+                       "block; wins where given")
+    p.add_argument("--instance-center-sigma", type=int, default=8)
+    p.add_argument("--instance-center-heatmap-threshold", type=float,
+                   default=0.1)
+    p.add_argument("--instance-center-heatmap-nms-kernel-size", type=int,
+                   default=17)
+    p.add_argument("--instance-center-heatmap-apply-foreground-mask",
+                   action="store_true")
+    p.add_argument("--instance-center-heatmap-top-k", type=int, default=64)
+    p.add_argument("--instance-center-encoding", default="sigmoid",
+                   choices=("sigmoid", "none"))
+    p.add_argument("--instance-offset-encoding", default="tanh",
+                   choices=("tanh", "relative", "deeplab"))
+    p.add_argument("--instance-offset-distance-threshold", type=int,
+                   default=None)
+
+
+def model_config_from_args(a: argparse.Namespace) -> ModelConfig:
+    """The ModelConfig of the model flags, with the deprecated aliases
+    applied as `emsanet_tpu/utils/cli.py::args_to_config` applies them."""
+    kw = {f.name: getattr(a, f.name) for f in dataclasses.fields(ModelConfig)
+          if getattr(a, f.name, None) is not None}
+    if a.encoder_decoder_fusion:
+        for task in DENSE_TASKS:
+            kw[f"{task}_encoder_decoder_fusion"] = a.encoder_decoder_fusion
+    if a.upsampling_decoder:
+        for task in DENSE_TASKS:
+            kw[f"{task}_decoder_upsampling"] = a.upsampling_decoder
+    if a.normalization:
+        kw["encoder_normalization"] = a.normalization
+        kw["decoder_normalization"] = a.normalization
+    for mod in KNOWN_MODALITIES:
+        dep = getattr(a, f"{mod}_encoder_backbone_block")
+        kw[f"{mod}_encoder_backbone_block"] = (
+            dep if dep is not None
+            else getattr(a, f"{mod}_encoder_backbone_resnet_block"))
+    head_decode_fusion = a.head_decode_fusion or "decode"
+    if head_decode_fusion == "auto":  # as emsanet_tpu/utils/cli.py
+        head_decode_fusion = best_head_decode_fusion(
+            a.validation_batch_size or a.batch_size)
+    kw["head_decode_fusion"] = head_decode_fusion
+    return ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in kw.items()})
+
+
 def parse_args(argv: Optional[Sequence[str]] = None
                ) -> Tuple[EMSANetConfig, str, List[str]]:
     """(validated configuration, device name, the argv parsed)."""
@@ -236,28 +358,7 @@ def config_from_args(a: argparse.Namespace) -> EMSANetConfig:
     inference scripts parse them too, beside their own)."""
     if a.wandb_mode != "disabled":
         raise NotPortedError("not ported yet: wandb logging")
-    head_decode_fusion = a.head_decode_fusion or "decode"
-    if head_decode_fusion == "auto":  # as emsanet_tpu/utils/cli.py
-        head_decode_fusion = best_head_decode_fusion(
-            a.validation_batch_size or a.batch_size)
-    model = ModelConfig(
-        tasks=tuple(a.tasks), enable_panoptic=a.enable_panoptic,
-        input_height=a.input_height, input_width=a.input_width,
-        dropout_p=a.dropout_p, rgb_encoder_backbone=a.rgb_encoder_backbone,
-        depth_encoder_backbone=a.depth_encoder_backbone,
-        semantic_decoder_block_dropout_p=a.semantic_decoder_block_dropout_p,
-        instance_decoder_block_dropout_p=a.instance_decoder_block_dropout_p,
-        semantic_no_multiscale_supervision=(
-            a.semantic_no_multiscale_supervision),
-        instance_no_multiscale_supervision=(
-            a.instance_no_multiscale_supervision),
-        instance_center_sigma=a.instance_center_sigma,
-        compute_dtype=a.compute_dtype, fused_training=a.fused_training,
-        head_decode_fusion=head_decode_fusion,
-        **{f"{what}encoder_backbone_pretrained_weights_filepath": getattr(
-            a, f"{what}encoder_backbone_pretrained_weights_filepath")
-           for what in ("", "rgb_", "depth_")},
-    )
+    model = model_config_from_args(a)
     data = DataConfig(
         dataset=a.dataset, dataset_path=a.dataset_path, split=a.split,
         validation_split=a.validation_split, raw_depth=a.raw_depth,
@@ -290,7 +391,7 @@ def config_from_args(a: argparse.Namespace) -> EMSANetConfig:
                          else None),
         instance_weighting=tuple(a.instance_weighting),
         instance_center_loss=a.instance_center_loss,
-        orientation_kappa=a.orientation_kappa,
+        orientation_kappa=a.orientation_kappa, normal_loss=a.normal_loss,
         semantic_loss_label_smoothing=a.semantic_loss_label_smoothing,
         scene_loss_label_smoothing=a.scene_loss_label_smoothing,
         validation_skip=a.validation_skip,

@@ -23,6 +23,7 @@ from emsanet_tpu_torch.losses import (
     cross_entropy_scene,
     cross_entropy_semantic,
     get_total_loss_key,
+    l1_normal,
     l1_offset,
     mse_center,
     von_mises_orientation,
@@ -53,6 +54,7 @@ def compute_losses(
     class_weights: Optional[torch.Tensor] = None,
     semantic_side_downscales: Tuple[int, ...] = (),
     instance_side_downscales: Tuple[int, ...] = (),
+    normal_side_downscales: Tuple[int, ...] = (),
     orientation_kappa: float = 1.0,
     label_smoothing: float = 0.0,
     scene_label_smoothing: Optional[float] = None,
@@ -121,7 +123,24 @@ def compute_losses(
         losses[get_total_loss_key("scene")] = cross_entropy_scene(
             outputs["scene"]["logits"], batch["scene"],
             label_smoothing=scene_label_smoothing)
+
+    if "normal" in outputs and "normal" in batch:
+        total = l1_normal(outputs["normal"]["normal"], batch["normal"],
+                          batch.get("normal_mask"))
+        for side, s in zip(outputs["normal"].get("side_outputs", ()),
+                           normal_side_downscales):
+            sub = down(s)
+            if "normal" in sub:
+                total = total + l1_normal(side, sub["normal"],
+                                          sub.get("normal_mask"))
+        losses[get_total_loss_key("normal")] = total
     return losses
+
+
+def model_inputs(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """The model's inputs of a batch: its 'rgb' and 'depth', where it has
+    them (the model takes the modalities it was built for)."""
+    return {k: batch[k] for k in ("rgb", "depth") if k in batch}
 
 
 def make_train_step(
@@ -143,13 +162,14 @@ def make_train_step(
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with dropout_generator(generator):
-            outputs = model({"rgb": batch["rgb"], "depth": batch["depth"]})
+            outputs = model(model_inputs(batch))
         losses = compute_losses(
             outputs, batch, class_weights,
             semantic_side_downscales=m.task_side_output_downscales(
                 "semantic"),
             instance_side_downscales=m.task_side_output_downscales(
                 "instance"),
+            normal_side_downscales=m.task_side_output_downscales("normal"),
             orientation_kappa=t.orientation_kappa,
             label_smoothing=t.semantic_loss_label_smoothing,
             scene_label_smoothing=t.scene_loss_label_smoothing,
@@ -185,8 +205,7 @@ def make_eval_step(
         model.eval()
         try:
             with torch.inference_mode():
-                outputs = model({"rgb": batch["rgb"],
-                                 "depth": batch["depth"]})
+                outputs = model(model_inputs(batch))
                 return postprocess(
                     outputs, is_thing, cfg.model,
                     gt_foreground=batch.get("instance_foreground"),

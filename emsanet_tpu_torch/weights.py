@@ -8,7 +8,7 @@ named after the flax tree, so the map is the identity on paths
   conv `kernel` (kh, kw, in/groups, out) -> `weight` (out, in/groups, kh, kw)
   (depthwise kernels (3, 3, 1, C) become (C, 1, 3, 3) by the same rule)
   dense `kernel` (in, out)            -> `weight` (out, in)
-  BatchNorm `scale` / `bias`          -> `weight` / `bias`
+  BatchNorm / LayerNorm / GroupNorm `scale` / `bias` -> `weight` / `bias`
   BatchNorm `mean` / `var` (stats)    -> `running_mean` / `running_var`
   conv / dense `bias`                 -> `bias`
 
@@ -28,7 +28,13 @@ import torch
 from torch import nn
 
 from emsanet_tpu_torch.models.encoder import SEFusion
-from emsanet_tpu_torch.models.layers import BatchNorm, NonBottleneck1D
+from emsanet_tpu_torch.models.layers import (
+    BatchNorm,
+    Bottleneck,
+    GroupNorm,
+    LayerNorm,
+    NonBottleneck1D,
+)
 from emsanet_tpu_torch.models.upsampling import (
     BILINEAR_MIMIC_KERNEL,
     Upsampling,
@@ -108,11 +114,15 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
     which keeps the activations of the deep residual stacks of order 1.
     The task heads' convs are drawn at 0.1x the He scale, so that the
     random heatmap and logits are not saturated and postprocessing finds
-    centers and instances.
+    centers and instances. LayerNorms and GroupNorms get the BatchNorms'
+    random affine parameters; the bottleneck blocks' last norms count as
+    branch ends, as the NonBottleneck1D ones do.
     """
     g = torch.Generator().manual_seed(seed)
     branch_ends = {id(m.second_norm()) for m in model.modules()
-                   if isinstance(m, NonBottleneck1D)}
+                   if isinstance(m, NonBottleneck1D)} | {
+        id(m.Norm_0.inner) for m in model.modules()
+        if isinstance(m, Bottleneck)}
     heads = {id(m) for name, m in model.named_modules()
              if name.rsplit(".", 1)[-1].startswith(("head_conv",
                                                      "head_task_conv"))}
@@ -139,6 +149,13 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
             module.bias.copy_(torch.randn(c, generator=g) * 0.1)
             module.running_mean.copy_(torch.randn(c, generator=g) * 0.1)
             module.running_var.copy_(torch.rand(c, generator=g) + 0.5)
+        elif isinstance(module, (LayerNorm, GroupNorm)):
+            c = module.weight.shape[0]
+            if id(module) in branch_ends:
+                module.weight.copy_(torch.rand(c, generator=g) * 0.2 + 0.1)
+            else:
+                module.weight.copy_(torch.rand(c, generator=g) + 0.5)
+            module.bias.copy_(torch.randn(c, generator=g) * 0.1)
     return model
 
 
@@ -166,9 +183,12 @@ def reference_init_(model: nn.Module, seed: int) -> nn.Module:
     and scaled to std 1 / sqrt(fan_in), fan_in = kh * kw * c_in / groups;
     He-normal (untruncated, std sqrt(2 / fan_in)) for the SE layers of
     the encoder fusion where `cfg.he_init` names "encoder-fusion"
-    (`emsanet_tpu/models/layers.py:29-30`, `:125`). Biases 0. BatchNorm
-    scale 1, bias 0, running mean 0, running var 1, except scale 0 on
-    the last norm of the zero-init-residual NBt1D blocks (the decoders',
+    (`emsanet_tpu/models/layers.py:29-30`, `:125`; the only part whose
+    init the JAX model switches: the backbones' SE gates, the MLP
+    decoders and every other layer keep lecun_normal). Biases 0. Norms
+    (batch, layer, group) scale 1, bias 0; BatchNorm running mean 0,
+    running var 1; scale 0 on the last norm of the zero-init-residual
+    NBt1D blocks, which only batchnorm builds (the decoders',
     `layers.py:179-185`; `no_zero_init_decoder_residuals` builds none).
     Learned upsamplings: the bilinear-mimic kernel. The draws come from a
     `torch.Generator(seed)`, so the bits differ from JAX's; their
@@ -205,6 +225,9 @@ def reference_init_(model: nn.Module, seed: int) -> nn.Module:
             module.bias.zero_()
             module.running_mean.zero_()
             module.running_var.fill_(1.0)
+        elif isinstance(module, (LayerNorm, GroupNorm)):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
     return model
 
 
@@ -373,15 +396,18 @@ def load_backbone_pretrained(model: nn.Module, filepath: str, modality: str,
     copied; the depth stem (1 input channel) takes conv1 summed over its
     RGB channels; others are reported and skipped (an NBt1D backbone
     takes only the stem, the downsampling blocks' convs and the norms
-    whose names it shares)."""
-    from emsanet_tpu_torch.models.backbone import STAGE_BLOCKS
+    whose names it shares; a bottleneck backbone takes torchvision's
+    bottleneck names)."""
+    from emsanet_tpu_torch.models.backbone import get_backbone_spec
 
     raw = torch.load(filepath, map_location="cpu", weights_only=True)
     if isinstance(raw, dict) and "state_dict" in raw:
         raw = raw["state_dict"]
     say = print if verbose else (lambda *a, **k: None)
     own = model.state_dict()
-    name_map = resnet_torch_name_map(modality, STAGE_BLOCKS[backbone_name])
+    spec = get_backbone_spec(backbone_name)
+    name_map = resnet_torch_name_map(modality, spec.stage_blocks,
+                                     spec.bottleneck)
     n_loaded = 0
     for torch_name, port_name in name_map.items():
         full = f"encoder.{port_name}"

@@ -353,8 +353,9 @@ def test_jax_checkpoint_in_the_trainer(jax_ckpt, tmp_path, capsys):
             str(H), "--input-width", str(W), "--batch-size", "2",
             "--validation-batch-size", "2", "--synthetic-n-samples", "2",
             "--class-weighting", "none", "--n-workers", "1",
-            "--validation-only", "--skip-sanity-check", "--weights-filepath",
-            jax_ckpt[0], "--results-basepath", str(tmp_path)]
+            "--fused-inference", "--validation-only", "--skip-sanity-check",
+            "--weights-filepath", jax_ckpt[0], "--results-basepath",
+            str(tmp_path)]
     assert trainer.main(argv) == 0
     logs = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert np.isfinite(logs["valid_semantic_miou"])

@@ -390,7 +390,8 @@ def test_trainer_on_disk_two_cameras_full_resolution(roots, tmp_path,
             "--rgb-encoder-backbone", "resnet18", "--depth-encoder-backbone",
             "resnet18", "--input-height", str(H), "--input-width", str(W),
             "--batch-size", "2", "--validation-batch-size", "2",
-            "--n-epochs", "2", "--fused-training", "--n-workers", "2",
+            "--n-epochs", "2", "--fused-training", "--fused-inference",
+            "--n-workers", "2",
             "--validation-full-resolution", "--skip-sanity-check",
             "--results-basepath", str(tmp_path / "runs")]
     assert trainer.main(argv) == 0
@@ -414,7 +415,7 @@ def _model(dataset="nyuv2", n_classes=None, tasks=TASKS, block="basicblock"):
         input_width=W, rgb_encoder_backbone="resnet18",
         depth_encoder_backbone="resnet18",
         rgb_encoder_backbone_block=block,
-        depth_encoder_backbone_block=block), train=True)
+        depth_encoder_backbone_block=block))
     ds = metadata.get_dataset_config(dataset, n_classes, dataset != "nyuv2")
     model = build_train_model(cfg, ds, device="cpu", seed=0)
     g = torch.Generator().manual_seed(len(ds.semantic_class_names))

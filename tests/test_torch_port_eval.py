@@ -69,7 +69,8 @@ def _cfgs(n=3, batch_size=2):
              validation_batch_size=batch_size, synthetic_n_samples=n,
              n_workers=1)
     port = pc.validate_train_for_port(pc.EMSANetConfig(
-        model=pc.ModelConfig(**model), data=pc.DataConfig(**d),
+        model=pc.ModelConfig(fused_inference=True, **model),
+        data=pc.DataConfig(**d),
         train=pc.TrainConfig(skip_sanity_check=True)))
     ref = JaxEMSANetConfig(model=JaxModelConfig(fused_inference=True, **model),
                            data=JaxDataConfig(**d),

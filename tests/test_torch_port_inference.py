@@ -262,7 +262,8 @@ def test_visualize_validation_writes_the_reference_files(tmp_path,
         "--input-width", "96", "--batch-size", "2",
         "--validation-batch-size", "2", "--synthetic-n-samples", "3",
         "--class-weighting", "none", "--n-workers", "1",
-        "--visualize-validation", "--visualization-output-path",
+        "--fused-inference", "--visualize-validation",
+        "--visualization-output-path",
         str(tmp_path / "port")])
     run = trainer.setup(cfg, "cpu")
     assert isinstance(run.colors, pv.ColorGenerators)
@@ -313,7 +314,8 @@ def test_visualize_validation_in_the_run_directory(tmp_path):
             "--depth-encoder-backbone", "resnet18", "--input-height", "64",
             "--input-width", "96", "--batch-size", "2",
             "--synthetic-n-samples", "2", "--class-weighting", "none",
-            "--n-workers", "1", "--n-epochs", "2", "--skip-sanity-check",
+            "--n-workers", "1", "--n-epochs", "2", "--fused-inference",
+            "--skip-sanity-check",
             "--validation-force-interval", "1", "--visualize-validation",
             "--results-basepath", str(tmp_path)]
     assert trainer.main(argv) == 0

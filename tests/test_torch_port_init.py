@@ -22,6 +22,9 @@ the port's converter (`weights.flax_to_state_dict`), against
   normal samples the largest lies near 3.5 std) exactly where flax's is,
   told apart at 2.6 std, and its pooled mean lie within 4 standard errors
   of 0.
+
+`tests/test_torch_port_variants_init.py` holds a second configuration to
+the same checks.
 """
 
 import jax
@@ -58,9 +61,11 @@ MODEL = dict(tasks=("semantic", "instance", "orientation", "scene"),
 
 
 def _random_key(key: str) -> bool:
-    """Conv and dense kernels, but not the depthwise upsamplings."""
-    return key.endswith(".weight") and "BatchNorm" not in key and (
-        "depthwise" not in key)
+    """Conv and dense kernels, but not the depthwise upsamplings or the
+    norms' scales."""
+    return key.endswith(".weight") and not any(
+        n in key for n in ("BatchNorm", "LayerNorm", "GroupNorm",
+                           "depthwise"))
 
 
 class _Pooled:
@@ -86,25 +91,30 @@ class _Pooled:
         return mean, std, self.amax[key] / std, n
 
 
-@pytest.fixture(scope="module")
-def inits():
+def _one_thread(model_kw):
     # one intra-op thread: an idle pool's threads would spin beside the
     # JAX work of the other test workers
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        yield _inits()
+        return _inits(model_kw)
     finally:
         torch.set_num_threads(threads)
 
 
-def _inits():
-    jcfg = JaxEMSANetConfig(model=JaxModelConfig(**MODEL),
+@pytest.fixture(scope="module")
+def inits():
+    return _one_thread(MODEL)
+
+
+def _inits(model_kw):
+    jcfg = JaxEMSANetConfig(model=JaxModelConfig(**model_kw),
                             data=JaxDataConfig(dataset="synthetic")).validate()
     jmodel = JaxEMSANet(cfg=jcfg.model,
                         dataset_config=jax_ds_config(jcfg.data))
     init = jax.jit(lambda k: init_model(jmodel, k, train=True))
-    cfg = pc.flagship_config(fused_training=True, **MODEL)
+    cfg = pc.flagship_config(fused_training=True, **{
+        "enable_panoptic": False, **model_kw})
     model = build_train_model(cfg, get_dataset_config("synthetic"),
                               device="cpu", seed=0)
     port0 = {k: v.clone().numpy() for k, v in model.state_dict().items()}

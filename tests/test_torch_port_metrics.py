@@ -21,7 +21,6 @@ from emsanet_tpu.postprocessing import interleave_planes_np as jax_interleave
 from emsanet_tpu_torch import config as pc
 from emsanet_tpu_torch import metrics
 from emsanet_tpu_torch import task_helper as th
-from emsanet_tpu_torch.config import NotPortedError
 from emsanet_tpu_torch.data import DataLoader
 from emsanet_tpu_torch.datasets.metadata import get_dataset_config
 from emsanet_tpu_torch.datasets.registry import get_dataset
@@ -178,10 +177,3 @@ def test_task_helpers_match_jax(layout):
     assert 0.0 < logs["panoptic_all_with_gt_deeplab_pq"] < 1.0
     assert 0.0 < logs["orientation_mae_gt_deg"] < 90.0
     assert 0.0 < logs["panoptic_mae_deeplab_deg"] < 90.0
-
-
-def test_task_helpers_refuse_the_normal_task():
-    cfg = _cfg()
-    cfg.model.tasks = ("semantic", "normal")
-    with pytest.raises(NotPortedError):
-        th.get_task_helpers(cfg, get_dataset_config("synthetic"))

@@ -302,7 +302,7 @@ def test_learned_upsampling_gate_matches_flax(hw, defer):
     v = {"params": {"depthwise": {"kernel": kernel}}}
     want = np.asarray(fm.apply(v, x))
     pm = _load(upsampling.Upsampling("learned-3x3-zeropad", 3,
-                                     defer_interleave=defer), v)
+                                     defer_interleave=defer, fused=True), v)
     with torch.no_grad():
         got = _nhwc(pm(_nchw(x)))
     assert got.shape == want.shape
@@ -318,7 +318,7 @@ def test_other_upsamplings_match_flax(method):
         "kernel": rng.randn(3, 3, 1, 3).astype(np.float32)}}} if (
         method == "learned-3x3") else {}
     want = np.asarray(fm.apply(v, x))
-    pm = _load(upsampling.Upsampling(method, 3), v)
+    pm = _load(upsampling.Upsampling(method, 3, fused=True), v)
     with torch.no_grad():
         got = _nhwc(pm(_nchw(x)))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
@@ -364,28 +364,12 @@ def test_weight_map_fails_loudly():
         layers.SqueezeExcitation(64).state_dict())
 
 
-@pytest.mark.parametrize("override", [
-    {"rgb_encoder_backbone": "resnet50"},
-    {"tasks": ("semantic", "instance", "normal")},
-    {"semantic_decoder": "segformermlp"},
-    {"input_modalities": ("rgbd",)},
-    {"fused_inference": False},
-])
-def test_config_refuses_what_is_not_ported(override):
-    with pytest.raises(port_config.NotPortedError, match="not ported yet"):
-        port_config.flagship_config(**override)
-
-
 @pytest.mark.parametrize("part,override,what", [
-    ("model", {"train_polyphase_upsampling": True},
-     "train_polyphase_upsampling"),
-    ("model", {"tasks": ("semantic", "instance", "normal")}, "normal"),
-    ("model", {"rgb_encoder_backbone": "resnet50"}, "resnet50"),
     ("train", {"n_devices": 2}, "n_devices"),
-    ("model", {"activation": "silu"}, "activation"),
 ])
 def test_training_is_refused(part, override, what):
-    """What the port's training still refuses; the flagship trains."""
+    """What the port's training still refuses; the flagship trains, and
+    so do the settings `tests/test_torch_port_variants_config.py` lists."""
     cfg = port_config.EMSANetConfig(
         model=port_config.flagship_config(fused_training=True),
         data=port_config.DataConfig(dataset="synthetic"))
@@ -407,4 +391,3 @@ def test_entry_point_without_gpu_raises():
         depth_encoder_backbone="resnet18")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg, get_dataset_config("synthetic"))
-

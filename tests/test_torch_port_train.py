@@ -522,14 +522,22 @@ def test_class_weights_match_jax(mode):
 
 
 def test_train_entry_runs_on_cpu(capsys, tmp_path):
+    """On one torch intra-op thread for its duration, restored after: the
+    default pool's idle threads spin beside the other test workers'
+    processes."""
     argv = ["--device", "cpu", "--dataset", "synthetic", "--n-epochs", "1",
             "--batch-size", "2", "--synthetic-n-samples", "2",
             "--input-height", "64", "--input-width", "64",
             "--rgb-encoder-backbone", "resnet18",
             "--depth-encoder-backbone", "resnet18", "--tasks", *TASKS,
-            "--enable-panoptic", "--fused-training", "--n-workers", "1",
-            "--results-basepath", str(tmp_path)]
-    assert train_entry.main(argv) == 0
+            "--enable-panoptic", "--fused-training", "--fused-inference",
+            "--n-workers", "1", "--results-basepath", str(tmp_path)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert train_entry.main(argv) == 0
+    finally:
+        torch.set_num_threads(threads)
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert '"train_total_loss"' in line and '"epoch": 0' in line
 

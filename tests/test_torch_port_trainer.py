@@ -48,7 +48,8 @@ def _cfg(h=64, w=96, n=4, batch_size=2, head="decode", megakernel="auto",
                              input_height=h, input_width=w,
                              rgb_encoder_backbone="resnet18",
                              depth_encoder_backbone="resnet18",
-                             fused_training=True, head_decode_fusion=head,
+                             fused_training=True, fused_inference=True,
+                             head_decode_fusion=head,
                              decoder_megakernel=megakernel),
         data=pc.DataConfig(dataset="synthetic", batch_size=batch_size,
                            validation_batch_size=batch_size,
@@ -289,8 +290,9 @@ def test_validation_only_from_a_checkpoint(tmp_path, capsys):
             "--depth-encoder-backbone", "resnet18", "--input-height", "64",
             "--input-width", "96", "--batch-size", "2",
             "--validation-batch-size", "2", "--synthetic-n-samples", "4",
-            "--fused-training", "--class-weighting", "none",
-            "--n-workers", "2", "--validation-only", "--skip-sanity-check",
+            "--fused-training", "--fused-inference", "--class-weighting",
+            "none", "--n-workers", "2", "--validation-only",
+            "--skip-sanity-check",
             "--weights-filepath", path, "--results-basepath",
             str(tmp_path / "runs")]
     assert trainer.main(argv) == 0
@@ -310,10 +312,3 @@ def test_unported_flags_are_refused(flags):
     with pytest.raises(NotPortedError):
         trainer.parse_args(["--device", "cpu", "--dataset", "synthetic",
                             *flags])
-
-
-def test_fused_inference_off_is_refused():
-    cfg = _cfg()
-    cfg.model.fused_inference = False
-    with pytest.raises(NotPortedError):
-        pc.validate_for_port(cfg.model, train=True)

@@ -28,7 +28,7 @@ TASK_FLAGS = ("--tasks", "semantic", "instance", "orientation", "scene",
               "--enable-panoptic")
 SMALL_FLAGS = (*TASK_FLAGS, "--rgb-encoder-backbone", "resnet18",
                "--depth-encoder-backbone", "resnet18", "--input-height",
-               "96", "--input-width", "128")
+               "96", "--input-width", "128", "--fused-inference")
 
 
 def write_samples(root: str, shapes: Iterable[Tuple[int, int]],

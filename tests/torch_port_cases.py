@@ -9,7 +9,9 @@ U(0.5, 1.5), carried to the port by its own converter
 (`emsanet_tpu_torch/weights.py::load_flax_variables`). Both run at f32 on
 the CPU, where the port's kernel wrappers take their plain versions;
 every output leaf must agree to atol 1e-4 + rtol 1e-3 (conv accumulation
-order differs between XLA and PyTorch).
+order differs between XLA and PyTorch). `port_overrides` apply to the
+port's configuration only (e.g. the decoder trunk 'on' against the JAX
+model's own decoders, the same function).
 """
 
 import jax
@@ -59,7 +61,8 @@ def _leaves(tree, path=""):
         yield path, tree
 
 
-def forward_parity(overrides, height=96, width=128, batch=2, seed=0):
+def forward_parity(overrides, height=96, width=128, batch=2, seed=0,
+                   port_overrides=None):
     """Run one configuration through both packages; return the worst
     (abs error, path) and assert every leaf within the tolerance. The
     port runs on one intra-op thread: an idle pool's threads would spin
@@ -67,12 +70,13 @@ def forward_parity(overrides, height=96, width=128, batch=2, seed=0):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        return _forward_parity(overrides, height, width, batch, seed)
+        return _forward_parity(overrides, height, width, batch, seed,
+                               port_overrides or {})
     finally:
         torch.set_num_threads(threads)
 
 
-def _forward_parity(overrides, height, width, batch, seed):
+def _forward_parity(overrides, height, width, batch, seed, port_overrides):
     model_kw = dict(tasks=TASKS, enable_panoptic=True, input_height=height,
                     input_width=width, rgb_encoder_backbone="resnet18",
                     depth_encoder_backbone="resnet18", fused_inference=True,
@@ -87,7 +91,7 @@ def _forward_parity(overrides, height, width, batch, seed):
     shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), dummy)
     variables = random_variables(dict(shapes), seed + 1)
 
-    pcfg = port_config.flagship_config(**model_kw)
+    pcfg = port_config.flagship_config(**{**model_kw, **port_overrides})
     pmodel = build_model(pcfg, get_dataset_config("synthetic"), device="cpu",
                          seed=None)
     load_flax_variables(pmodel, variables)
