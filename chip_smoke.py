@@ -186,6 +186,38 @@ Phases (any failure exits non-zero and prints no result):
      setting of the CPU parity list (tests/test_torch_port_variants_*.py)
      as a small R18 96x128 f32 b2 frame, card against CPU, with phase 4's
      limits.
+ 12. data parallel (`[parallel]`, `emsanet_tpu_torch/parallel/`): (a)
+     `dryrun_multichip(2, "cuda")`: two ranks on the one card over gloo
+     (NCCL refuses two ranks on one card), the flagship (R34-NBt1D, bf16,
+     fused_training, 640x480) at global b8 (b4 a rank) for 3 steps from
+     the synthetic train data: on each rank kernels 9 and 10 launched
+     (the Python launch counters, set to 0 before the steps), the
+     parameters and BatchNorm buffers bit-identical across the ranks
+     after every step, every loss finite; (b) the 2-rank sharded
+     validation (global b8, b4 a rank) against one process on the same
+     weights that evaluates the same images in calls of b4 (an image's
+     outputs depend on the batch its convolutions and kernels run in):
+     the eval step's maps equal (integer maps bit for bit), the logs
+     equal; kernels 1-7 launched on each rank; (c) a checkpoint rank 0 saved and both ranks loaded holds the
+     live parameters, buffers and optimizer state bit for bit and gives
+     the next step's losses bit for bit (the step's backward is not
+     deterministic on the card: the PPM's adaptive pooling and
+     antialiased resize; the parameters' spread after it is logged);
+     (d) world size 1 over NCCL through the same step: its first step's
+     losses equal the plain step's bit for bit, and after 3 steps its
+     parameters lie no farther from the closest of three plain runs
+     than the farthest two plain runs lie apart. Logged:
+     the step wall time at 2 ranks and at 1 process and the all-reduce's
+     share (gloo through the host on one card says nothing of NCCL
+     across cards).
+ 13. export (`[export]`, `emsanet_tpu_torch/export_model.py`): the
+     flagship b1 bf16 frame with postprocessing (decode-planes, the trunk
+     by 'auto') through `torch.export`: the graph holds the `emsanet::*`
+     op of every kernel the live frame launches (1-8), the program saved
+     and loaded back launches them, and its outputs equal the live
+     frame's (integer and bool maps bit for bit, floats within 1e-5);
+     the export's size and seconds and the loaded program's ms per call
+     beside the live frame's are logged.
 
 Tolerances (error relative to the largest magnitude of the plain result
 unless stated): stem bf16 2e-2, f32 1e-4; NBt1D chain bf16 5e-2 (K
@@ -1045,6 +1077,11 @@ def run() -> int:
     # -- 11. the other model settings ----------------------------------------
     torch.cuda.empty_cache()
     variants_report = variants_phase(torch, modules, ops_mod)
+    # -- 12. data parallel, 13. export ---------------------------------------
+    torch.cuda.empty_cache()
+    parallel_report = parallel_phase(torch, card)
+    torch.cuda.empty_cache()
+    export_report = export_phase(torch, modules, time_cuda)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": card, "frame_ms": frame_ms, "detail": detail,
                    "launches": launches, "errors": errors,
@@ -1059,7 +1096,9 @@ def run() -> int:
                    "validation": validation_report,
                    "dataset": dataset_report,
                    "inference": inference_report,
-                   "variants": variants_report}, f, indent=1)
+                   "variants": variants_report,
+                   "parallel": parallel_report,
+                   "export": export_report}, f, indent=1)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))
@@ -3318,6 +3357,135 @@ def variants_phase(torch, modules, ops_mod):
         f"{min(r['min_agree'] for r in report['card_vs_cpu'].values()):.4f}")
     report["seconds"] = time.perf_counter() - t_phase
     log(f"[variants] phase {report['seconds']:.1f} s")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 12: data parallel; phase 13: export
+
+PARALLEL_RANKS = 2
+PARALLEL_STEPS = 3
+
+
+def parallel_phase(torch, card):
+    """[parallel]: the data-parallel dry run on the one card (gloo, two
+    ranks) and world size 1 over NCCL (module docstring, phase 12)."""
+    from emsanet_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    main = dryrun.dryrun_multichip(PARALLEL_RANKS, "cuda", 480, 640,
+                                   steps=PARALLEL_STEPS)
+    for rank, launched in enumerate(main["all_launches"]):
+        missing = sorted(k for k, n in launched.items() if n <= 0)
+        if missing:
+            raise AssertionError(f"[parallel] rank {rank}: kernels "
+                                 f"{missing} did not launch")
+    step_ms = [1e3 * s for s in main["step_s"]]
+    reduce_share = main["reduce_s"] / max(sum(main["step_s"]), 1e-9)
+    log(f"[parallel] (a) {PARALLEL_RANKS} ranks on one card (gloo), flagship "
+        f"R34 640x480 bf16 fused_training, global b{4 * PARALLEL_RANKS}: "
+        f"launches per rank {json.dumps(main['all_launches'])}; parameters "
+        f"and BatchNorm buffers bit-identical across ranks after each of "
+        f"{PARALLEL_STEPS} steps and the resumed step (sha256 "
+        f"{main['digests'][-1][:16]}); total loss "
+        + " -> ".join(f"{l['total_loss']:.5f}" for l in main["losses"]))
+    log(f"[parallel] (b) sharded validation, {PARALLEL_RANKS} ranks at b4 "
+        f"against one process at b4 (the same images in the same calls): "
+        f"every map equal bit for bit, logs equal: "
+        f"{json.dumps(main['valid_logs'])}")
+    log(f"[parallel] (c) checkpoint saved by rank 0, loaded on both ranks: "
+        f"parameters, buffers and optimizer state equal to the live ones bit "
+        f"for bit, the next step's losses equal; its parameters "
+        f"{main['resume']['param_max_abs']:.3g} max abs from the live step's "
+        f"(the backward's run-to-run spread)")
+    w1 = dryrun.world1_check("cuda", 480, 640, 4 * PARALLEL_RANKS,
+                             PARALLEL_STEPS)
+    log(f"[parallel] (d) world size 1 over {w1['backend']}: step 1's losses "
+        f"equal the plain step's bit for bit; after {PARALLEL_STEPS} steps "
+        f"parameters {w1['param_diff_mesh']:.3g} max abs from the closest of "
+        f"3 plain runs (the farthest two plain runs: "
+        f"{w1['param_diff_plain']:.3g})")
+    plain_ms = [1e3 * s for s in w1["step_s_plain"]]
+    mesh1_ms = [1e3 * s for s in w1["step_s_mesh"]]
+    log(f"[parallel] step wall ms (first step includes warm-up): "
+        f"{PARALLEL_RANKS} ranks at b4 on one card "
+        f"{', '.join(f'{v:.1f}' for v in step_ms)} (all-reduce "
+        f"{100 * reduce_share:.1f}% of it, through the host); world 1 over "
+        f"NCCL at b8 {', '.join(f'{v:.1f}' for v in mesh1_ms)}; one process "
+        f"at b8 {', '.join(f'{v:.1f}' for v in plain_ms)}. gloo through the "
+        f"host on one card says nothing of NCCL across cards. {card}")
+    report = {"dryrun": {k: main[k] for k in (
+                  "losses", "step_s", "reduce_s", "all_launches",
+                  "valid_logs", "resume")},
+              "world1": w1, "reduce_share": reduce_share,
+              "seconds": time.perf_counter() - t_phase}
+    log(f"[parallel] phase {report['seconds']:.1f} s")
+    return report
+
+
+def export_phase(torch, modules, time_cuda):
+    """[export]: the flagship b1 bf16 frame through `torch.export`
+    (module docstring, phase 13)."""
+    from emsanet_tpu_torch import export_model
+    from emsanet_tpu_torch.bench import build_flagship
+
+    t_phase = time.perf_counter()
+    model, cfg, ds = build_flagship(480, 640, "bfloat16",
+                                    head_decode_fusion="decode-planes")
+    frame = export_model.Frame(model, cfg, ds.classes_is_thing, True)
+    x = export_model.example_inputs(1, 480, 640, "cuda", seed=0)
+    reset_counts(modules)
+    want = frame(*x)
+    torch.cuda.synchronize()
+    live = {k: n for k, n in counts(modules).items() if n > 0}
+    t0 = time.perf_counter()
+    with torch.enable_grad():  # export traces with autograd's view
+        program = export_model.export_frame(frame, 1, 480, 640)
+    export_s = time.perf_counter() - t0
+    ops = export_model.custom_ops(program)
+    missing = sorted(set(live) - set(ops))
+    if missing:
+        raise AssertionError(f"[export] the program lacks the ops of "
+                             f"{missing}; it holds {ops}")
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_export_"),
+                        "flagship_b1.pt2")
+    try:
+        t0 = time.perf_counter()
+        torch.export.save(program, path)
+        save_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        loaded = torch.export.load(path).module()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    reset_counts(modules)
+    got = loaded(*x)
+    torch.cuda.synchronize()
+    ran = {k: n for k, n in counts(modules).items() if n > 0}
+    if ran != live:
+        raise AssertionError(f"[export] the loaded program launched {ran}, "
+                             f"the live frame {live}")
+    cmp = export_model.compare_outputs(got, want)
+    if cmp["failed"]:
+        raise AssertionError(f"[export] the loaded program differs from the "
+                             f"live frame at {cmp['failed']}")
+    live_ms = time_cuda(lambda: frame(*x), 3, 10)
+    loaded_ms = time_cuda(lambda: loaded(*x), 3, 10)
+    report = {"ops": ops, "launches": live, "size_mb": size_mb,
+              "export_s": export_s, "save_s": save_s, "load_s": load_s,
+              "float_max_abs": cmp["float_max_abs"], "leaves": cmp["leaves"],
+              "live_ms": live_ms, "loaded_ms": loaded_ms,
+              "seconds": time.perf_counter() - t_phase}
+    log(f"[export] flagship b1 bf16 decode-planes with postprocessing: "
+        f"traced in {export_s:.1f} s, {size_mb:.1f} MB written in "
+        f"{save_s:.1f} s, loaded in {load_s:.1f} s; ops in the graph "
+        f"{json.dumps(ops)}; the loaded program launched {json.dumps(ran)} "
+        f"as the live frame; {cmp['leaves']} outputs equal (integer maps bit "
+        f"for bit, floats max abs {cmp['float_max_abs']:.3g}); ms per call "
+        f"(10 calls, CUDA events): live frame {live_ms:.3f}, loaded program "
+        f"{loaded_ms:.3f}")
+    log(f"[export] phase {report['seconds']:.1f} s")
     return report
 
 

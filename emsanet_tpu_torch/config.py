@@ -25,9 +25,10 @@ choice per batch size.
 `validate_for_port` checks every value against the JAX package's
 registries and applies its model rules (one modality forces
 `encoder_fusion='none'`, a decoder other than 'emsanet' trains without
-multiscale supervision). `validate_train_for_port` refuses, with a "not
-ported yet" error, data parallel training (`n_devices` > 1); the trainer
-refuses wandb logging. Neither falls back to another path.
+multiscale supervision). `validate_train_for_port` refuses batch sizes
+that do not divide over `n_devices` ranks, with `main.py`'s message; the
+trainer refuses wandb logging with a "not ported yet" error. Neither
+falls back to another path.
 """
 
 from __future__ import annotations
@@ -308,10 +309,6 @@ class NotPortedError(NotImplementedError):
     """A setting the port does not run yet (a refusal, not a fallback)."""
 
 
-def _refuse(what: str) -> None:
-    raise NotPortedError(f"not ported yet: {what}")
-
-
 def _check(value, known, what: str) -> None:
     if value not in known:
         raise ValueError(f"Unknown {what} '{value}', known: {known}")
@@ -379,8 +376,10 @@ def validate_train_for_port(cfg: EMSANetConfig) -> EMSANetConfig:
     cfg.validate()
     validate_for_port(cfg.model)
     d, t = cfg.data, cfg.train
-    if (t.n_devices or 1) > 1:
-        _refuse(f"n_devices={t.n_devices} (data parallel training)")
+    if (t.n_devices or 1) > 1:  # fail before any set-up (main.py:175-186)
+        from emsanet_tpu_torch.parallel.mesh import check_batch_sizes
+
+        check_batch_sizes(d.batch_size, d.validation_batch_size, t.n_devices)
     if t.optimizer not in KNOWN_OPTIMIZERS:
         raise ValueError(f"Unknown optimizer: '{t.optimizer}'")
     if t.learning_rate_scheduler != "onecycle":

@@ -31,6 +31,12 @@ stops them. Validation loaders use threads, as in the JAX package.
 subset through the test preprocessor (`TrainSubsetView`).
 `--subset-train` draws a fraction of the train data each epoch, one
 fraction per concatenated dataset where given several.
+
+Under data parallelism (`parallel/mesh.py`) every rank draws the same
+global batches (same sampler order, same seed) and loads only its rows
+[r B/n, (r+1) B/n) of each (`shard=(r, n)`), the JAX package's
+contiguous split on axis 0 (`P('data')`), not `DistributedSampler`'s
+interleave; `_valid_mask` is the global batch's, cut the same way.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import copy
 import multiprocessing
 import os
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -152,7 +158,8 @@ class DataLoader:
                  drop_last: bool = False, n_workers: int = 4,
                  sampler: Optional[RandomSamplerSubset] = None,
                  seed: int = 0, prefetch: int = 2,
-                 worker_mode: str = "thread"):
+                 worker_mode: str = "thread",
+                 shard: Tuple[int, int] = (0, 1)):
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"Unknown worker_mode '{worker_mode}'")
         self.dataset = dataset
@@ -168,6 +175,12 @@ class DataLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.worker_mode = worker_mode
+        rank, size = shard
+        if batch_size % size:
+            raise ValueError(f"batch size {batch_size} does not divide over "
+                             f"{size} ranks")
+        self.rows = slice(rank * batch_size // size,
+                          (rank + 1) * batch_size // size)
         self._processes: Optional[ProcessPoolExecutor] = None
         self._processes_preprocessor = None
 
@@ -202,15 +215,18 @@ class DataLoader:
         return np.arange(len(self.dataset))
 
     def _batch_indices(self, indices, b: int):
+        """The sample indices of this rank's rows of global batch b, and
+        the number of real samples of that global batch."""
         idxs = indices[b * self.batch_size:(b + 1) * self.batch_size].tolist()
         n_real = len(idxs)
         while len(idxs) < self.batch_size:  # pad the last batch
             idxs.append(idxs[-1])
-        return idxs, n_real
+        return idxs[self.rows], n_real
 
     def _collate(self, samples, n_real: int) -> Dict:
         batch = batch_collate(samples)
-        batch["_valid_mask"] = np.arange(self.batch_size) < n_real
+        batch["_valid_mask"] = (np.arange(self.batch_size) < n_real)[
+            self.rows]
         return batch
 
     def batches(self, epoch: int = 0) -> Iterator[Dict]:
@@ -260,7 +276,8 @@ class DataHelper:
                  valid_batch_size: int, n_workers: int = 4,
                  subset_train=1.0, subset_deterministic: bool = False,
                  overfit_n_batches: int = -1, seed: int = 0,
-                 worker_mode: str = "thread"):
+                 worker_mode: str = "thread",
+                 shard: Tuple[int, int] = (0, 1)):
         self.dataset_train = dataset_train
         self.dataset_valid = dataset_valid
         sampler = None
@@ -280,19 +297,20 @@ class DataHelper:
         self.train_loader = DataLoader(
             dataset_train, batch_size, shuffle=True, drop_last=True,
             n_workers=n_workers, sampler=sampler, seed=seed,
-            worker_mode=worker_mode)
+            worker_mode=worker_mode, shard=shard)
         cameras = dataset_valid.cameras
         self.valid_loaders: Dict[str, DataLoader] = {}
         if len(cameras) <= 1:
             self.valid_loaders[cameras[0] if cameras else "default"] = (
                 DataLoader(dataset_valid, valid_batch_size, shuffle=False,
-                           drop_last=False, n_workers=n_workers, seed=seed))
+                           drop_last=False, n_workers=n_workers, seed=seed,
+                           shard=shard))
         else:
             for cam in cameras:
                 ds = copy.deepcopy(dataset_valid).filter_camera(cam)
                 self.valid_loaders[cam] = DataLoader(
                     ds, valid_batch_size, shuffle=False, drop_last=False,
-                    n_workers=n_workers, seed=seed)
+                    n_workers=n_workers, seed=seed, shard=shard)
 
     def set_train_preprocessor(self, preprocessor):
         self.dataset_train.preprocessor = preprocessor
@@ -335,8 +353,9 @@ class TrainSubsetView:
         self._base.preprocessor = value
 
 
-def get_datahelper(cfg) -> DataHelper:
-    """The data of a configuration (EMSANetConfig). The validation data is
+def get_datahelper(cfg, shard: Tuple[int, int] = (0, 1)) -> DataHelper:
+    """The data of a configuration (EMSANetConfig), this rank's rows of
+    each batch where `shard` = (rank, ranks). The validation data is
     the train split's overfit subset with `validation_on_train` and
     `overfit_n_batches` (the whole train split where it has several
     cameras), the whole train split with `validation_on_train` alone,
@@ -361,4 +380,4 @@ def get_datahelper(cfg) -> DataHelper:
                       n_workers=d.n_workers, subset_train=d.subset_train,
                       subset_deterministic=d.subset_deterministic,
                       overfit_n_batches=t.overfit_n_batches, seed=t.seed,
-                      worker_mode=d.worker_mode)
+                      worker_mode=d.worker_mode, shard=shard)

@@ -9,6 +9,15 @@ compiled when a module is imported: the CPU paths never reach this file.
 
 `build_all()` starts one `nvcc` per source, all at once, and waits for
 them; `load(name)` builds one source if it is missing.
+
+`kernel_op` registers a kernel's wrapper as a `torch.library` custom op
+`emsanet::<name>`: its CUDA implementation launches the kernel, its CPU
+implementation is the plain version, and its fake implementation gives
+the output shapes and dtypes. The dispatcher so expresses the port's
+rule (the kernel for a CUDA tensor, the plain version for a CPU tensor,
+no fallback), the eager frame and `torch.export` take the same op, and
+an exported program holds the kernels as calls of these ops (a ctypes
+launch cannot run on the fake tensors `torch.export` traces with).
 """
 
 from __future__ import annotations
@@ -20,7 +29,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -134,6 +143,21 @@ def stream_ptr(t: torch.Tensor) -> int:
     if _RAW_STREAM is None:
         return torch.cuda.current_stream(t.device).cuda_stream
     return _RAW_STREAM(t.get_device())
+
+
+OP_NAMESPACE = "emsanet"
+
+
+def kernel_op(name: str, schema: str, cuda: Callable, plain: Callable,
+              fake: Callable):
+    """The custom op `emsanet::<name>(<schema>)`: `cuda` for CUDA
+    tensors, `plain` for CPU tensors, `fake` for tracing."""
+    op = torch.library.custom_op(f"{OP_NAMESPACE}::{name}", cuda,
+                                 mutates_args=(),
+                                 device_types="cuda", schema=schema)
+    op.register_kernel("cpu")(plain)
+    op.register_fake(fake)
+    return op
 
 
 def check(err: int, what: str) -> None:

@@ -3,9 +3,10 @@
 Counterpart of `emsanet_tpu/ops/decoder_trunk.py::decoder_trunk`. The
 trunk of a dense decoder is, per module, conv_in 3x3 + BN + ReLU, K
 stride-1 NonBottleneck1D blocks, the learned-3x3-zeropad x2 upsample and
-the encoder skip's 1x1 projection + BN + add. `decoder_trunk` computes it
-for D decoders at once: on a CUDA tensor in ONE launch of the
-hand-written kernel `csrc/decoder_trunk.cu`, on a CPU tensor through
+the encoder skip's 1x1 projection + BN + add. `decoder_trunk`, the custom
+op `emsanet::decoder_trunk` (`_native.kernel_op`), computes it for D
+decoders at once: on a CUDA tensor in ONE launch of the hand-written
+kernel `csrc/decoder_trunk.cu`, on a CPU tensor through
 `decoder_trunk_plain`. Both round to the compute dtype where the TPU
 kernel does (`_trunk_kernel`), not where the unfused decoder does.
 
@@ -21,7 +22,8 @@ taps). Feature maps are NHWC.
 
 In bf16 the kernel splits the K loop of a phase whose work items would
 leave blocks of its grid idle (`trunk_plan`); `decoder_trunk_phase_ns`
-runs the same launch with per-phase %globaltimer stamps.
+runs the same launch with per-phase %globaltimer stamps (a diagnostic
+that calls the launch directly, outside the op).
 """
 
 from __future__ import annotations
@@ -305,15 +307,45 @@ def _check_module(i: int, m: Module, dt: torch.dtype, d: int, k: int,
                              "16-byte aligned")
 
 
+# a module's tensors in the op's flat list
+_OP_KEYS = ("cin_w", "cin_s", "cin_t", "blk_w31", "blk_w13", "blk_b31",
+            "blk_b13", "blk_bn_scale", "blk_bn_shift", "ups", "proj_w",
+            "proj_s", "proj_t")
+
+
+def _modules(params: Sequence[torch.Tensor]) -> List[Module]:
+    k = len(_OP_KEYS)
+    return [dict(zip(_OP_KEYS, params[i:i + k]))
+            for i in range(0, len(params), k)]
+
+
+def _decoder_trunk_fake(con_out, skips, params):
+    mods = _modules(params)
+    n, h, w, _ = con_out.shape
+    d, c = mods[-1]["cin_w"].shape[0], mods[-1]["cin_w"].shape[-1]
+    m = len(mods)
+    return con_out.new_empty((d, n, h << m, w << m, c))
+
+
+_OP = _native.kernel_op(
+    "decoder_trunk", "(Tensor con_out, Tensor[] skips, Tensor[] params) "
+    "-> Tensor",
+    lambda con_out, skips, params: _launch(con_out, skips, _modules(params),
+                                           None)[0],
+    lambda con_out, skips, params: decoder_trunk_plain(con_out, skips,
+                                                       _modules(params)),
+    _decoder_trunk_fake)
+
+
 def decoder_trunk(con_out: torch.Tensor, skips: Sequence[torch.Tensor],
                   per_module: Sequence[Module]) -> torch.Tensor:
-    """The trunks of D decoders: con_out (N, H0, W0, C0) the context
-    module's output, skips[i] (N, 2^(i+1) H0, 2^(i+1) W0, C_s) module i's
-    encoder skip, per_module from `stack_trunk_params`. Returns (D, N,
-    2^M H0, 2^M W0, C_last), each decoder's head input."""
-    if not con_out.is_cuda:
-        return decoder_trunk_plain(con_out, skips, per_module)
-    return _launch(con_out, skips, per_module, None)[0]
+    """The trunks of D decoders (the op `emsanet::decoder_trunk`):
+    con_out (N, H0, W0, C0) the context module's output, skips[i]
+    (N, 2^(i+1) H0, 2^(i+1) W0, C_s) module i's encoder skip, per_module
+    from `stack_trunk_params`. Returns (D, N, 2^M H0, 2^M W0, C_last),
+    each decoder's head input."""
+    return _OP(con_out, list(skips),
+               [m[key] for m in per_module for key in _OP_KEYS])
 
 
 # %globaltimer stamps per phase (csrc/decoder_trunk.cu kStampRow): its

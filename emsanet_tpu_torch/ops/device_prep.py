@@ -7,11 +7,12 @@ standardization runs there. Tensors are NHWC, like the JAX package.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict
 
 import numpy as np
 import torch
+
+from emsanet_tpu_torch.ops import param_cache
 
 # ImageNet statistics
 _RGB_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -20,7 +21,7 @@ _RGB_SCALE = (1.0 / (255.0 * _RGB_STD)).astype(np.float32)
 _RGB_SHIFT = (_RGB_MEAN / _RGB_STD).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@param_cache.device_constant
 def _rgb_affine(device: torch.device):
     """(scale, shift) on `device`, copied there once: a copy from pageable
     host memory makes the host wait for the device's queue, every frame."""

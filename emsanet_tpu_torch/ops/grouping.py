@@ -1,7 +1,8 @@
 """Pixel -> instance-center grouping (argmin over K centers).
 
-Counterpart of `emsanet_tpu/ops/grouping.py::group_pixels_argmin`. On
-CUDA tensors `group_pixels_argmin` launches the hand-written kernel
+Counterpart of `emsanet_tpu/ops/grouping.py::group_pixels_argmin`.
+`group_pixels_argmin` is the custom op `emsanet::group_pixels_argmin`
+(`_native.kernel_op`). On CUDA tensors it launches the hand-written kernel
 `csrc/grouping.cu` (the valid centers staged once per block, 4 pixels
 a thread); on CPU tensors it runs
 `group_pixels_argmin_plain`, the JAX package's reference formula
@@ -33,16 +34,10 @@ def group_pixels_argmin_plain(
     return torch.argmin(dist, dim=-1).to(torch.int32), dist.amin(dim=-1)
 
 
-def group_pixels_argmin(
+def _group_pixels_argmin_cuda(
     voted: torch.Tensor, centers: torch.Tensor, centers_valid: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(best_idx (N, P) int32, best_dist_sq (N, P) f32).
-
-    voted: (N, P, 2) f32; centers: (N, K, 2) f32; centers_valid: (N, K)
-    bool.
-    """
-    if not voted.is_cuda:
-        return group_pixels_argmin_plain(voted, centers, centers_valid)
+    """The kernel launch (the op's CUDA implementation)."""
     _native.require_cuda_tensor(voted, "voted", (torch.float32,), 3)
     _native.require_cuda_tensor(centers, "centers", (torch.float32,), 3)
     _native.require_cuda_tensor(centers_valid, "centers_valid",
@@ -64,6 +59,31 @@ def group_pixels_argmin(
     _GROUP_PIXELS_ARGMIN.launches += 1
     _native.check(err, "group_pixels_argmin")
     return idx, dist
+
+
+def _group_pixels_argmin_fake(voted, centers, centers_valid):
+    n, p, _ = voted.shape
+    return (voted.new_empty((n, p), dtype=torch.int32),
+            voted.new_empty((n, p), dtype=torch.float32))
+
+
+_OP = _native.kernel_op(
+    "group_pixels_argmin",
+    "(Tensor voted, Tensor centers, Tensor centers_valid) -> (Tensor, Tensor)",
+    _group_pixels_argmin_cuda, group_pixels_argmin_plain,
+    _group_pixels_argmin_fake)
+
+
+def group_pixels_argmin(
+    voted: torch.Tensor, centers: torch.Tensor, centers_valid: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(best_idx (N, P) int32, best_dist_sq (N, P) f32) (the op
+    `emsanet::group_pixels_argmin`).
+
+    voted: (N, P, 2) f32; centers: (N, K, 2) f32; centers_valid: (N, K)
+    bool.
+    """
+    return _OP(voted, centers, centers_valid)
 
 
 # the launch count lives on the function object; the body reaches it

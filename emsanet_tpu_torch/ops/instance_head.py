@@ -10,7 +10,8 @@ center, tanh offsets, identity orientation). The output is f32 and
 channel-major: parity planes (N, C, 4, H/2, W/2), parity p*2+q, or
 interleaved maps (N, C, H, W).
 
-On CUDA tensors `instance_head_upsample` launches the hand-written
+`instance_head` is the custom op `emsanet::instance_head`
+(`_native.kernel_op`). On CUDA tensors it launches the hand-written
 kernel `csrc/instance_head.cu`; on CPU tensors it runs the plain
 version: the polyphase conv in the compute dtype, then the encodes in
 f32.
@@ -72,17 +73,15 @@ def instance_head_upsample_interleaved_plain(
         n, c, 2 * h2, 2 * w2)
 
 
-def instance_head(
-    x: torch.Tensor, weight: torch.Tensor, encodings: Sequence[int],
-    interleaved: bool = False,
-) -> torch.Tensor:
-    """Encoded maps, as planes (N, C, 4, H/2, W/2) or, with
-    `interleaved`, as (N, C, H, W)."""
-    if not x.is_cuda:
-        if interleaved:
-            return instance_head_upsample_interleaved_plain(x, weight,
-                                                            encodings)
-        return instance_head_upsample_plain(x, weight, encodings)
+def _out_shape(x: torch.Tensor, interleaved: bool) -> Tuple[int, ...]:
+    n, h2, w2, c = x.shape
+    return (n, c, 2 * h2, 2 * w2) if interleaved else (n, c, 4, h2, w2)
+
+
+def _instance_head_cuda(x: torch.Tensor, weight: torch.Tensor,
+                        encodings: Sequence[int],
+                        interleaved: bool) -> torch.Tensor:
+    """The kernel launch (the op's CUDA implementation)."""
     _native.require_cuda_tensor(x, "x", (torch.float32, torch.bfloat16), 4)
     n, h2, w2, c = x.shape
     if (tuple(weight.shape) != (c, 1, 3, 3) or len(encodings) != c
@@ -97,8 +96,8 @@ def instance_head(
             raise ValueError(f"unknown encoding code {code}")
         enc |= code << (4 * ch)
     taps = cached_parity_taps(weight, x.dtype, x.device)
-    shape = (n, c, 2 * h2, 2 * w2) if interleaved else (n, c, 4, h2, w2)
-    out = torch.empty(shape, device=x.device, dtype=torch.float32)
+    out = torch.empty(_out_shape(x, interleaved), device=x.device,
+                      dtype=torch.float32)
     fn = _native.bind("instance_head", "instance_head_launch", 11,
                       int_args=[0, 1, 2, 3, 4, 5, 6])
     err = fn(int(x.dtype == torch.bfloat16), n, h2, w2, c, enc,
@@ -107,6 +106,29 @@ def instance_head(
     _INSTANCE_HEAD.launches += 1
     _native.check(err, "instance_head")
     return out
+
+
+def _instance_head_plain(x, weight, encodings, interleaved):
+    if interleaved:
+        return instance_head_upsample_interleaved_plain(x, weight, encodings)
+    return instance_head_upsample_plain(x, weight, encodings)
+
+
+_OP = _native.kernel_op(
+    "instance_head",
+    "(Tensor x, Tensor weight, int[] encodings, bool interleaved) -> Tensor",
+    _instance_head_cuda, _instance_head_plain,
+    lambda x, weight, encodings, interleaved: x.new_empty(
+        _out_shape(x, interleaved), dtype=torch.float32))
+
+
+def instance_head(
+    x: torch.Tensor, weight: torch.Tensor, encodings: Sequence[int],
+    interleaved: bool = False,
+) -> torch.Tensor:
+    """Encoded maps, as planes (N, C, 4, H/2, W/2) or, with
+    `interleaved`, as (N, C, H, W) (the op `emsanet::instance_head`)."""
+    return _OP(x, weight, [int(e) for e in encodings], interleaved)
 
 
 def instance_head_upsample(

@@ -1,7 +1,9 @@
 """K stride-1 NonBottleneck1D blocks at inference (folded BatchNorm).
 
-Counterpart of `emsanet_tpu/ops/nbt1d_chain.py::nbt1d_chain`. On a CUDA
-tensor `nbt1d_chain` runs the whole chain in one call of the hand-written
+Counterpart of `emsanet_tpu/ops/nbt1d_chain.py::nbt1d_chain`.
+`nbt1d_chain` is the custom op `emsanet::nbt1d_chain`
+(`_native.kernel_op`). On a CUDA tensor it runs the whole chain in one
+call of the hand-written
 `csrc/nbt1d_chain.cu` (bf16: `wgmma` convs fed by TMA, the C = 64 and
 C = 128 pairs in one launch each, the wider pairs in two implicit-GEMM
 launches, K split across blocks where a C = 512 map gives too few tiles;
@@ -18,7 +20,7 @@ x's dtype, holds them already (`models/layers.py` caches them so).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -58,10 +60,15 @@ def kmajor_weights(stacked: Stacked, dtype: torch.dtype) -> torch.Tensor:
     return wt.transpose(-1, -2).to(dtype).contiguous()
 
 
-def nbt1d_chain(x: torch.Tensor, stacked: Stacked) -> torch.Tensor:
-    """Run the K blocks of `stacked` over x (N, H, W, C)."""
-    if not x.is_cuda:
-        return nbt1d_chain_plain(x, stacked)
+_KEYS = ("w31", "w13", "b31", "b13", "bn_scale", "bn_shift")
+
+
+def _nbt1d_chain_cuda(x: torch.Tensor, w31: torch.Tensor, w13: torch.Tensor,
+                      b31: torch.Tensor, b13: torch.Tensor,
+                      bn_scale: torch.Tensor, bn_shift: torch.Tensor,
+                      wt: Optional[torch.Tensor]) -> torch.Tensor:
+    """The kernel launches (the op's CUDA implementation)."""
+    stacked = dict(zip(_KEYS, (w31, w13, b31, b13, bn_scale, bn_shift)))
     _native.require_cuda_tensor(x, "x", (torch.float32, torch.bfloat16), 4)
     if x.data_ptr() % 16:
         raise ValueError("nbt1d_chain: x must be 16-byte aligned")
@@ -83,7 +90,6 @@ def nbt1d_chain(x: torch.Tensor, stacked: Stacked) -> torch.Tensor:
             raise ValueError(f"{key} must be a CUDA tensor ({k}, 2, {c})")
     bf16 = x.dtype == torch.bfloat16
     if bf16:
-        wt = stacked.get("wt")
         if wt is None or wt.dtype != x.dtype or tuple(wt.shape) != (
                 k, 2, 2, 3, c, c):
             wt = kmajor_weights(stacked, x.dtype)
@@ -109,6 +115,21 @@ def nbt1d_chain(x: torch.Tensor, stacked: Stacked) -> torch.Tensor:
     _NBT1D_CHAIN.launches += 2 * k  # one per conv pair
     _native.check(err, "nbt1d_chain")
     return p0 if k % 2 else p1
+
+
+_OP = _native.kernel_op(
+    "nbt1d_chain",
+    "(Tensor x, Tensor w31, Tensor w13, Tensor b31, Tensor b13, "
+    "Tensor bn_scale, Tensor bn_shift, Tensor? wt) -> Tensor",
+    _nbt1d_chain_cuda,
+    lambda x, *vals: nbt1d_chain_plain(x, dict(zip(_KEYS, vals))),
+    lambda x, *vals: torch.empty_like(x, memory_format=torch.contiguous_format))
+
+
+def nbt1d_chain(x: torch.Tensor, stacked: Stacked) -> torch.Tensor:
+    """Run the K blocks of `stacked` over x (N, H, W, C) (the op
+    `emsanet::nbt1d_chain`)."""
+    return _OP(x, *(stacked[k] for k in _KEYS), stacked.get("wt"))
 
 
 # the launch count lives on the function object; the body reaches it

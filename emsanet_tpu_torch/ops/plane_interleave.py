@@ -7,12 +7,14 @@ package's `postprocessing.interleave_plane` / `deinterleave_plane`
 full-res form is (N, H, W) with pixel (2y+p, 2x+q) = plane p*2+q at
 (y, x).
 
-On CUDA tensors `interleave_planes` sends every f32 / int32 map and
-every 1-byte map (bool, uint8, int8) with width >= 2 through ONE launch
-of the hand-written kernel `csrc/plane_interleave.cu` (a bitwise copy:
-f32 is exact); other dtypes take the plain `interleave_plane`, as on the
-TPU. On CPU tensors every map takes `interleave_plane`. The kernel's
-outputs of one call are views of one allocation: a caller that keeps one
+`interleave_planes` sends every f32 / int32 map and every 1-byte map
+(bool, uint8, int8) with width >= 2 through the custom op
+`emsanet::interleave_planes` (`_native.kernel_op`): on CUDA tensors ONE
+launch of the hand-written kernel `csrc/plane_interleave.cu` (a bitwise
+copy: f32 is exact), on CPU tensors `interleave_plane` per map; other
+dtypes take the plain `interleave_plane`, as on the TPU. The op returns
+one byte buffer that holds the outputs one after another, and each
+output map is a view of it: a caller that keeps one
 of them keeps the memory of all of them (about 61 MB for the
 decode-planes frame's maps at b8), and `torch.save` of one writes the
 whole buffer; `.clone()` a map to keep it alone.
@@ -21,7 +23,7 @@ whole buffer; `.clone()` a map to keep it alone.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -56,15 +58,58 @@ def interleave_planes_plain(
     return {name: interleave_plane(x) for name, x in named.items()}
 
 
+def _interleave_planes_cuda(maps: List[torch.Tensor]) -> torch.Tensor:
+    """The kernel launches (the op's CUDA implementation): every map
+    woven into one byte buffer, the maps one after another in the order
+    given."""
+    n, _, h2, w2 = maps[0].shape
+    plane = n * 4 * h2 * w2  # elements of one output map
+    buf = torch.empty(sum(KERNEL_DTYPES[x.dtype] for x in maps) * plane,
+                      dtype=torch.uint8, device=maps[0].device)
+    base = buf.data_ptr()
+    ins, outs, sizes = [], [], []
+    offset = 0  # bytes
+    for x in maps:
+        size = KERNEL_DTYPES[x.dtype]
+        ins.append(x.data_ptr())
+        outs.append(base + offset)
+        sizes.append(size)
+        offset += size * plane
+    fn = _native.bind("plane_interleave", "plane_interleave_launch", 8,
+                      int_args=[0, 1, 2, 3])
+    stream = _native.stream_ptr(buf)
+    for i in range(0, len(maps), MAX_MAPS_PER_LAUNCH):
+        m = min(MAX_MAPS_PER_LAUNCH, len(maps) - i)
+        err = fn(m, n, h2, w2, _Pointers(*ins[i:i + m]),
+                 _Pointers(*outs[i:i + m]), _Sizes(*sizes[i:i + m]), stream)
+        _INTERLEAVE_PLANES.launches += 1
+        _native.check(err, "interleave_planes")
+    return buf
+
+
+def _interleave_planes_plain_bytes(maps: List[torch.Tensor]) -> torch.Tensor:
+    """The op's CPU implementation: `interleave_plane` per map, in the
+    kernel's byte layout."""
+    return torch.cat([interleave_plane(x).reshape(-1).view(torch.uint8)
+                      for x in maps])
+
+
+_OP = _native.kernel_op(
+    "interleave_planes", "(Tensor[] maps) -> Tensor",
+    _interleave_planes_cuda, _interleave_planes_plain_bytes,
+    lambda maps: maps[0].new_empty(
+        (sum(KERNEL_DTYPES[x.dtype] for x in maps) * maps[0].numel(),),
+        dtype=torch.uint8))
+
+
 def interleave_planes(
     named: Dict[str, torch.Tensor]
 ) -> Dict[str, torch.Tensor]:
     """Interleave every map of `named`; bit-exact with
-    `interleave_planes_plain`. The kernel's maps must share one shape and
-    go through one launch per 16 maps; their outputs share one buffer
-    (see the module's docstring)."""
-    if not any(x.is_cuda for x in named.values()):
-        return interleave_planes_plain(named)
+    `interleave_planes_plain`. The kernel's maps (the op
+    `emsanet::interleave_planes`) must share one shape and go through
+    one launch per 16 maps; their outputs share one buffer (see the
+    module's docstring)."""
     out, words, octets = {}, [], []
     shape = None
     for name, x in named.items():
@@ -75,12 +120,13 @@ def interleave_planes(
             continue
         if shape is None:
             shape = s
-        if (s != shape or len(s) != 4 or s[1] != 4 or not x.is_cuda
+        if (s != shape or len(s) != 4 or s[1] != 4
+                or x.device != named[next(iter(named))].device
                 or not x.is_contiguous()):
             raise ValueError("interleave_planes: every map of the kernel "
-                             "must be a contiguous CUDA (N, 4, H/2, W/2) "
-                             f"of one shape, got {name} {tuple(s)} on "
-                             f"{x.device}")
+                             "must be a contiguous (N, 4, H/2, W/2) of one "
+                             f"shape on one device, got {name} "
+                             f"{tuple(s)} on {x.device}")
         (words if size == 4 else octets).append((name, x))
     if shape is None:
         return out
@@ -90,32 +136,13 @@ def interleave_planes(
     # 16-byte boundary wherever the 1-byte maps' rows allow their 16-byte
     # path; each output is a view of it in its own dtype
     kernel = words + octets
-    buf = torch.empty((4 * len(words) + len(octets)) * plane,
-                      dtype=torch.uint8, device=kernel[0][1].device)
-    flat = {}
-    base = buf.data_ptr()
-    ins, outs, sizes = [], [], []
+    buf = _OP([x for _, x in kernel])
     offset = 0  # bytes
     for name, x in kernel:
         size = KERNEL_DTYPES[x.dtype]
-        view = flat.get(x.dtype)
-        if view is None:
-            view = flat[x.dtype] = buf.view(x.dtype)
-        ins.append(x.data_ptr())
-        outs.append(base + offset)
-        sizes.append(size)
-        out[name] = view.as_strided((n, 2 * h2, 2 * w2),
-                                    (4 * h2 * w2, 2 * w2, 1), offset // size)
+        out[name] = buf[offset:offset + size * plane].view(x.dtype).view(
+            n, 2 * h2, 2 * w2)
         offset += size * plane
-    fn = _native.bind("plane_interleave", "plane_interleave_launch", 8,
-                      int_args=[0, 1, 2, 3])
-    stream = _native.stream_ptr(buf)
-    for i in range(0, len(kernel), MAX_MAPS_PER_LAUNCH):
-        m = min(MAX_MAPS_PER_LAUNCH, len(kernel) - i)
-        err = fn(m, n, h2, w2, _Pointers(*ins[i:i + m]),
-                 _Pointers(*outs[i:i + m]), _Sizes(*sizes[i:i + m]), stream)
-        _INTERLEAVE_PLANES.launches += 1
-        _native.check(err, "interleave_planes")
     return {name: out[name] for name in named}
 
 

@@ -12,7 +12,6 @@ Tensors are NCHW here (the model's internal layout).
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
@@ -43,7 +42,7 @@ _TAP_INDEX = np.array([p * 9 + (p // 2 + a) * 3 + p % 2 + b
                        for p in range(4) for a in (0, 1) for b in (0, 1)])
 
 
-@functools.lru_cache(maxsize=None)
+@param_cache.device_constant
 def _constants(device: torch.device):
     """(_SOURCES, _TAP_INDEX) on `device`, copied there once: a copy from
     pageable host memory makes the host wait for the device's queue, on

@@ -1,7 +1,9 @@
 """Segment reductions of the panoptic merge.
 
-Counterpart of `emsanet_tpu/ops/segment_pallas.py`. On CUDA tensors
-`segment_hist_and_sums` and `segment_lookup` launch the hand-written
+Counterpart of `emsanet_tpu/ops/segment_pallas.py`.
+`segment_hist_and_sums` and `segment_lookup` are the custom ops
+`emsanet::segment_hist_and_sums` and `emsanet::segment_lookup`
+(`_native.kernel_op`). On CUDA tensors they launch the hand-written
 kernels of `csrc/segment.cu`; on CPU tensors they run their plain
 versions (scatter_add / gather with the one-hot semantics of
 `emsanet_tpu/ops/segment_ops.py`: keys outside [0, S) contribute
@@ -94,20 +96,11 @@ def segment_hist_and_sums_plain(
     return hist.view(n, num_segments, num_classes), sums
 
 
-def segment_hist_and_sums(
+def _segment_hist_and_sums_cuda(
     inst: torch.Tensor, sem: torch.Tensor, weights: torch.Tensor,
     vectors: torch.Tensor, num_segments: int, num_classes: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hist (N, S, C), vec_sums (N, S, D)) over pixels.
-
-    inst/sem: (N, P) int32; weights: (N, P) f32; vectors: (N, P, D) f32.
-    The kernel takes D = 1 or 2 (the merge's); larger D is cut into
-    calls of two components, each writing the histogram again (the same
-    bits).
-    """
-    if not inst.is_cuda:
-        return segment_hist_and_sums_plain(inst, sem, weights, vectors,
-                                           num_segments, num_classes)
+    """The kernel launches (the op's CUDA implementation)."""
     _native.require_cuda_tensor(inst, "inst", (torch.int32,), 2)
     _native.require_cuda_tensor(sem, "sem", (torch.int32,), 2)
     _native.require_cuda_tensor(weights, "weights", (torch.float32,), 2)
@@ -150,6 +143,36 @@ def segment_hist_and_sums(
             sums[..., off:off + 2] = out
     _SEGMENT_HIST_AND_SUMS.launches += 1
     return hist, sums
+
+
+def _segment_hist_and_sums_fake(inst, sem, weights, vectors, num_segments,
+                                num_classes):
+    n = inst.shape[0]
+    return (weights.new_empty((n, num_segments, num_classes)),
+            weights.new_empty((n, num_segments, vectors.shape[-1])))
+
+
+_HIST_OP = _native.kernel_op(
+    "segment_hist_and_sums",
+    "(Tensor inst, Tensor sem, Tensor weights, Tensor vectors, "
+    "int num_segments, int num_classes) -> (Tensor, Tensor)",
+    _segment_hist_and_sums_cuda, segment_hist_and_sums_plain,
+    _segment_hist_and_sums_fake)
+
+
+def segment_hist_and_sums(
+    inst: torch.Tensor, sem: torch.Tensor, weights: torch.Tensor,
+    vectors: torch.Tensor, num_segments: int, num_classes: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hist (N, S, C), vec_sums (N, S, D)) over pixels (the op
+    `emsanet::segment_hist_and_sums`).
+
+    inst/sem: (N, P) int32; weights: (N, P) f32; vectors: (N, P, D) f32.
+    The kernel takes D = 1 or 2 (the merge's); larger D is cut into
+    calls of two components, each writing the histogram again (the same
+    bits).
+    """
+    return _HIST_OP(inst, sem, weights, vectors, num_segments, num_classes)
 
 
 # the launch count lives on the function object; the body reaches it
@@ -198,16 +221,13 @@ def _lookup_shape(inst: torch.Tensor,
                      f"{tables.device}")
 
 
-def segment_lookup(inst: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
-    """Per-pixel lookups: (N, P) keys + (N, D, S) tables -> (N, D, P).
-
-    On the card, its host work is: one check that also reads the shapes
-    (`_lookup_shape`: a chain of attribute reads), one `new_empty`, three
-    `data_ptr` reads, the raw stream, one call of the C function bound on
-    the first launch, the counter and the error check.
-    """
-    if not inst.is_cuda:
-        return segment_lookup_plain(inst, tables)
+def _segment_lookup_cuda(inst: torch.Tensor,
+                         tables: torch.Tensor) -> torch.Tensor:
+    """The kernel launch (the op's CUDA implementation). Its host work
+    is: one check that also reads the shapes (`_lookup_shape`: a chain
+    of attribute reads), one `new_empty`, three `data_ptr` reads, the raw
+    stream, one call of the C function bound on the first launch, the
+    counter and the error check."""
     n, p, d, s = _lookup_shape(inst, tables)
     out = inst.new_empty((n, d, p), dtype=torch.float32)
     err = (_LOOKUP_LAUNCH or _lookup_launch())(
@@ -216,6 +236,19 @@ def segment_lookup(inst: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     _SEGMENT_LOOKUP.launches += 1
     _native.check(err, "segment_lookup")
     return out
+
+
+_LOOKUP_OP = _native.kernel_op(
+    "segment_lookup", "(Tensor inst, Tensor tables) -> Tensor",
+    _segment_lookup_cuda, segment_lookup_plain,
+    lambda inst, tables: tables.new_empty(
+        (inst.shape[0], tables.shape[1], inst.shape[1])))
+
+
+def segment_lookup(inst: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Per-pixel lookups: (N, P) keys + (N, D, S) tables -> (N, D, P) (the
+    op `emsanet::segment_lookup`)."""
+    return _LOOKUP_OP(inst, tables)
 
 
 # the launch count lives on the function object; the body reaches it

@@ -9,8 +9,10 @@ index (int32) and the max-softmax score (f32) of every full-res pixel,
 as parity planes (N, 4, H/2, W/2), parity p*2+q, or interleaved
 (N, H, W).
 
-On CUDA tensors `semantic_decode` launches the hand-written kernel
-`csrc/semantic_decode.cu`; on CPU tensors it runs the plain version: the
+`semantic_decode` is the custom op `emsanet::semantic_decode`
+(`_native.kernel_op`). On CUDA tensors it launches the hand-written
+kernel `csrc/semantic_decode.cu`; on CPU tensors it runs the plain
+version: the
 polyphase conv (`upsample2x_depthwise_polyphase_deferred`), then the
 kernel's arithmetic in PyTorch ops (values in the compute dtype, the
 difference to the max in f32, first maximum wins, score = 1 / sumexp).
@@ -71,15 +73,10 @@ def bf16_near_ties(x: torch.Tensor, weight: torch.Tensor,
     return interleave_plane(near) if interleaved else near
 
 
-def semantic_decode(
-    x: torch.Tensor, weight: torch.Tensor, interleaved: bool = False
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(idx int32, score f32), as planes (N, 4, H/2, W/2) or, with
-    `interleaved`, as (N, H, W)."""
-    if not x.is_cuda:
-        if interleaved:
-            return semantic_decode_interleaved_plain(x, weight)
-        return semantic_decode_planes_plain(x, weight)
+def _semantic_decode_cuda(x: torch.Tensor, weight: torch.Tensor,
+                          interleaved: bool
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel launch (the op's CUDA implementation)."""
     _native.require_cuda_tensor(x, "x", (torch.float32, torch.bfloat16), 4)
     n, h2, w2, c = x.shape
     if tuple(weight.shape) != (c, 1, 3, 3) or not 1 <= c <= MAX_CLASSES:
@@ -87,7 +84,7 @@ def semantic_decode(
                          f"{MAX_CLASSES} and weight (C, 1, 3, 3), got "
                          f"{tuple(x.shape)} and {tuple(weight.shape)}")
     taps = cached_parity_taps(weight, x.dtype, x.device)
-    shape = (n, 2 * h2, 2 * w2) if interleaved else (n, 4, h2, w2)
+    shape = _out_shape(x, interleaved)
     idx = torch.empty(shape, device=x.device, dtype=torch.int32)
     score = torch.empty(shape, device=x.device, dtype=torch.float32)
     fn = _native.bind("semantic_decode", "semantic_decode_launch", 11,
@@ -98,6 +95,37 @@ def semantic_decode(
     _SEMANTIC_DECODE.launches += 1
     _native.check(err, "semantic_decode")
     return idx, score
+
+
+def _out_shape(x: torch.Tensor, interleaved: bool) -> Tuple[int, ...]:
+    n, h2, w2, _ = x.shape
+    return (n, 2 * h2, 2 * w2) if interleaved else (n, 4, h2, w2)
+
+
+def _semantic_decode_plain(x, weight, interleaved):
+    if interleaved:
+        return semantic_decode_interleaved_plain(x, weight)
+    return semantic_decode_planes_plain(x, weight)
+
+
+def _semantic_decode_fake(x, weight, interleaved):
+    shape = _out_shape(x, interleaved)
+    return (x.new_empty(shape, dtype=torch.int32),
+            x.new_empty(shape, dtype=torch.float32))
+
+
+_OP = _native.kernel_op(
+    "semantic_decode",
+    "(Tensor x, Tensor weight, bool interleaved) -> (Tensor, Tensor)",
+    _semantic_decode_cuda, _semantic_decode_plain, _semantic_decode_fake)
+
+
+def semantic_decode(
+    x: torch.Tensor, weight: torch.Tensor, interleaved: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(idx int32, score f32), as planes (N, 4, H/2, W/2) or, with
+    `interleaved`, as (N, H, W) (the op `emsanet::semantic_decode`)."""
+    return _OP(x, weight, interleaved)
 
 
 def semantic_decode_planes(

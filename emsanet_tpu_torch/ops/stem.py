@@ -1,7 +1,8 @@
 """Fused stems of both encoders: 7x7/2 conv + BN + ReLU + 3x3/2 max pool.
 
-Counterpart of `emsanet_tpu/ops/stem.py::fused_stems`. On a CUDA tensor
-`fused_stems` launches the hand-written kernel `csrc/stem.cu` (one
+Counterpart of `emsanet_tpu/ops/stem.py::fused_stems`. `fused_stems` is
+the custom op `emsanet::fused_stems` (`_native.kernel_op`). On a CUDA
+tensor it launches the hand-written kernel `csrc/stem.cu` (one
 launch for all modalities; the conv output stays in shared memory; in
 bf16 the conv runs on the tensor cores as a stride-1 4x4 conv over 2x2
 space-to-depth packed pixels); on a CPU tensor it runs
@@ -102,20 +103,19 @@ def fused_stems_plain(
     return outs
 
 
-def fused_stems(
-    xs: Sequence[torch.Tensor],
-    weights: Sequence[torch.Tensor],
-    bn_params: Sequence[BNParams],
-) -> List[torch.Tensor]:
-    """Both stems in one launch.
+def _unflatten_bn(bn: Sequence[torch.Tensor]) -> List[BNParams]:
+    return [tuple(bn[i:i + 4]) for i in range(0, len(bn), 4)]
 
-    xs: per-modality inputs (N, H, W, C_m), same N/H/W and dtype;
-    weights: per-modality conv weights (64, C_m, 7, 7) (no bias);
-    bn_params: per-modality BatchNorm (weight, bias, running_mean,
-    running_var). Returns per-modality (N, H/4, W/4, 64).
-    """
-    if not xs[0].is_cuda:
-        return fused_stems_plain(xs, weights, bn_params)
+
+def _out_hw(h: int, w: int) -> Tuple[int, int]:
+    hc, wc = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    return (hc - 1) // 2 + 1, (wc - 1) // 2 + 1
+
+
+def _fused_stems_cuda(xs: List[torch.Tensor], weights: List[torch.Tensor],
+                      bn: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The kernel launch (the op's CUDA implementation)."""
+    bn_params = _unflatten_bn(bn)
     if not 1 <= len(xs) <= 2:
         raise ValueError("fused_stems takes one or two modalities")
     n, h, w, _ = xs[0].shape
@@ -129,13 +129,12 @@ def fused_stems(
             raise ValueError("stem inputs must have 1..4 channels")
         if tuple(weights[i].shape) != (64, x.shape[3], 7, 7):
             raise ValueError(f"weights[{i}] must be (64, {x.shape[3]}, 7, 7)")
-    hc, wc = (h - 1) // 2 + 1, (w - 1) // 2 + 1
-    hq, wq = (hc - 1) // 2 + 1, (wc - 1) // 2 + 1
+    hq, wq = _out_hw(h, w)
     args = []
     keep = []
     outs = []
-    for x, wt, bn in zip(xs, weights, bn_params):
-        w_k, s, t = prepared_stem_params(wt, bn, dtype)
+    for x, wt, bnp in zip(xs, weights, bn_params):
+        w_k, s, t = prepared_stem_params(wt, bnp, dtype)
         out = torch.empty((n, hq, wq, 64), device=x.device, dtype=dtype)
         keep += [w_k, s, t]
         outs.append(out)
@@ -150,6 +149,35 @@ def fused_stems(
     _FUSED_STEMS.launches += 1
     _native.check(err, "fused_stems")
     return outs
+
+
+def _fused_stems_fake(xs, weights, bn):
+    n, h, w, _ = xs[0].shape
+    hq, wq = _out_hw(h, w)
+    return [x.new_empty((n, hq, wq, 64)) for x in xs]
+
+
+_OP = _native.kernel_op(
+    "fused_stems", "(Tensor[] xs, Tensor[] weights, Tensor[] bn) -> Tensor[]",
+    _fused_stems_cuda,
+    lambda xs, weights, bn: fused_stems_plain(xs, weights, _unflatten_bn(bn)),
+    _fused_stems_fake)
+
+
+def fused_stems(
+    xs: Sequence[torch.Tensor],
+    weights: Sequence[torch.Tensor],
+    bn_params: Sequence[BNParams],
+) -> List[torch.Tensor]:
+    """Both stems in one launch (the op `emsanet::fused_stems`).
+
+    xs: per-modality inputs (N, H, W, C_m), same N/H/W and dtype;
+    weights: per-modality conv weights (64, C_m, 7, 7) (no bias);
+    bn_params: per-modality BatchNorm (weight, bias, running_mean,
+    running_var). Returns per-modality (N, H/4, W/4, 64).
+    """
+    return list(_OP(list(xs), list(weights),
+                    [p for bn in bn_params for p in bn]))
 
 
 # the launch count lives on the function object; the body reaches it

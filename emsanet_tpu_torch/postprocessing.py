@@ -30,7 +30,6 @@ TPU (postprocessing.py:335, :500, :655, :693, :768, :857, :910, :1096,
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -40,6 +39,7 @@ import torch.nn.functional as F
 from emsanet_tpu_torch.config import ModelConfig
 from emsanet_tpu_torch.ops import grouping as grouping_ops
 from emsanet_tpu_torch.ops import instance_head as instance_head_ops
+from emsanet_tpu_torch.ops import param_cache
 from emsanet_tpu_torch.ops import plane_interleave as interleave_ops
 from emsanet_tpu_torch.ops import segment_kernels as segment_ops
 from emsanet_tpu_torch.ops import semantic_decode as semantic_decode_ops
@@ -225,7 +225,7 @@ def find_instance_centers_planes(
     return {"yx": yx, "scores": scores, "valid": valid}
 
 
-@functools.lru_cache(maxsize=None)
+@param_cache.device_constant
 def _offset_scale(h: int, w: int, device: torch.device) -> torch.Tensor:
     """[h, w] f32 on `device`, made there once per size: a copy from
     pageable host memory makes the host wait for the device's queue."""

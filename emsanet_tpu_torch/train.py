@@ -50,8 +50,26 @@ Flags take `emsanet_tpu/utils/cli.py`'s names, the model group's whole
 every decoder's type, blocks, widths, fusion and upsampling, the
 instance head, the deprecated aliases); `--fused-inference` sends
 validation through the kernels, as there. Refused, with an error: wandb
-logging and `--n-devices` above 1. It runs on the card unless `--device
-cpu` is given, and raises without one.
+logging. It runs on the card unless `--device cpu` is given, and raises
+without one.
+
+Data parallel (`main.py:166-223`, `parallel/mesh.py`): `--n-devices N`
+spawns N ranks, one card each over NCCL (`--device cpu`: N CPU ranks
+over gloo, at most 8, as the JAX package's virtual CPU devices), joined
+through a file store; more ranks than cards raise, as `create_mesh` does.
+`--distributed` joins a group that torchrun started (RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR, MASTER_PORT), one card per rank. Both batch
+sizes must be multiples of the ranks (`main.py`'s check and message).
+Each rank loads its rows of every global batch, trains on them with the
+gradients, BatchNorm running statistics and losses averaged over the
+ranks (`training/step.py`), and validates them; rank 0 gathers the
+predictions and the ground truth and alone runs the task helpers, so
+its logs equal one process's over the same batches. Only rank 0 writes
+the run directory, the CSV, the checkpoints (then a barrier) and the
+visualizations, and prints; every rank loads the weights, the resume
+checkpoint, and then takes rank 0's parameters and buffers.
+Without `--n-devices` one process trains (the JAX package's default is
+every local device).
 """
 
 from __future__ import annotations
@@ -65,7 +83,7 @@ import os
 import sys
 import time
 import traceback
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +116,8 @@ from emsanet_tpu_torch.datasets.registry import (
 )
 from emsanet_tpu_torch.device import resolve_device
 from emsanet_tpu_torch.models.emsanet import build_train_model
+from emsanet_tpu_torch.parallel import mesh as mesh_ops
+from emsanet_tpu_torch.parallel.mesh import Mesh
 from emsanet_tpu_torch.preprocessing.transforms import get_preprocessor
 from emsanet_tpu_torch.task_helper import PREDICTION_KEYS, get_task_helpers
 from emsanet_tpu_torch.training.checkpoint import (
@@ -206,7 +226,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--validation-full-resolution", action="store_true")
     p.add_argument("--validation-scannet-benchmark-mode",
                    action="store_true")
-    p.add_argument("--n-devices", type=int, default=None)
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="data-parallel ranks, one device each")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group torchrun started (one "
+                   "card per rank)")
     p.add_argument("--overfit-n-batches", type=int, default=-1)
     p.add_argument("--validation-on-train", action="store_true")
     p.add_argument("--validation-skip", type=float, default=0.0)
@@ -431,15 +455,27 @@ class Run:
     lr_fn: Any
     # the colour generators `--visualize-validation` shares across epochs
     colors: Optional[ColorGenerators] = None
+    mesh: Optional[Mesh] = None  # the data-parallel group, if any
+
+    @property
+    def is_main(self) -> bool:
+        return self.mesh is None or self.mesh.is_main
 
 
-def setup(cfg: EMSANetConfig, device=None) -> Run:
+def setup(cfg: EMSANetConfig, device=None, mesh: Optional[Mesh] = None
+          ) -> Run:
     """The model (the reference's initialization from the seed), the
-    optimizer, the train and eval steps and the data of a configuration."""
-    dev = resolve_device(device)
+    optimizer, the train and eval steps and the data of a configuration;
+    with `mesh`, on the rank's device, with the rank's rows of each batch
+    and the averaging train step."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     m, d, t = cfg.model, cfg.data, cfg.train
     ds_config = get_dataset_config(d)
-    data = get_datahelper(cfg)
+    if mesh is not None:
+        mesh_ops.check_batch_sizes(d.batch_size, d.validation_batch_size,
+                                   mesh.size)
+    data = get_datahelper(cfg, shard=(0, 1) if mesh is None
+                          else (mesh.rank, mesh.size))
     names = [e["name"] for e in parse_datasets(d.dataset)]
     sunrgbd_combined = names[0] == "sunrgbd" and any(
         n in ("nyuv2", "hypersim", "scannet") for n in names[1:])
@@ -468,12 +504,13 @@ def setup(cfg: EMSANetConfig, device=None) -> Run:
                optimizer=optimizer,
                class_weights=class_weights,
                train_step=make_train_step(model, cfg, optimizer,
-                                          class_weights),
+                                          class_weights, mesh),
                eval_step=make_eval_step(model, cfg, is_thing,
                                         use_orientations=use_orientations),
                data=data, lr_fn=get_lr_fn(t),
                colors=(ColorGenerators.for_dataset(ds_config)
-                       if t.visualize_validation else None))
+                       if t.visualize_validation else None),
+               mesh=mesh)
 
 
 def dropout_generator_for(seed: int, epoch: int, step: int,
@@ -491,13 +528,23 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 def run_validation(run: Run, epoch: int,
                    artifacts_dir: Optional[str] = None,
-                   examples_dir: Optional[str] = None) -> Dict[str, float]:
+                   examples_dir: Optional[str] = None,
+                   on_batch: Optional[Callable[[Dict, Dict], None]] = None
+                   ) -> Dict[str, float]:
     """Every validation loader through the eval step and the task
     helpers (`main.py:242-278`); returns the 'valid_'-prefixed logs and
     saves each helper's artifacts as `<name>_epoch_<epoch>.npy` into
     `artifacts_dir`, where given. With `--visualize-validation`, the
     first batch's predictions and ground truth are drawn into
-    `<examples_dir>/epoch_<epoch:04d>/` (`main.py:260-267`)."""
+    `<examples_dir>/epoch_<epoch:04d>/` (`main.py:260-267`). `on_batch`,
+    where given, sees every (batch, host predictions) the helpers see.
+
+    Over a mesh each rank evaluates its rows, and rank 0 gathers every
+    rank's predictions and batch, joins them into the global batch and
+    alone runs the helpers (and `on_batch`), so its logs are one
+    process's over the same batches, padding rows included once; the
+    other ranks return {}."""
+    mesh = run.mesh
     helpers = get_task_helpers(run.cfg, run.ds_config)
     for th in helpers:
         th.initialize()
@@ -511,14 +558,24 @@ def run_validation(run: Run, epoch: int,
                     and n_batches == 0)
             preds = {k: _host(v) for k, v in preds.items()
                      if draw or k in PREDICTION_KEYS}
+            n_batches += 1
+            if mesh is not None:
+                parts = mesh_ops.gather_to_main(mesh, (batch, preds))
+                if not mesh.is_main:
+                    continue
+                batch = mesh_ops.concat_rows([b for b, _ in parts])
+                preds = mesh_ops.concat_rows([p for _, p in parts])
             for th in helpers:
                 th.validation_step(batch, preds)
+            if on_batch is not None:
+                on_batch(batch, preds)
             if draw:
                 out = os.path.join(examples_dir, f"epoch_{epoch:04d}")
                 visualize_predictions(preds, batch, out, run.ds_config,
                                       run.colors)
                 visualize_batches(batch, out, run.ds_config, run.colors)
-            n_batches += 1
+    if not run.is_main:
+        return {}
     logs: Dict[str, float] = {}
     for th in helpers:
         artifacts, th_logs = th.validation_epoch_end()
@@ -532,12 +589,14 @@ def run_validation(run: Run, epoch: int,
 
 def sanity_check(run: Run) -> float:
     """One train step on a copy of the model and the optimizer (the
-    first batch of epoch 0); returns its total loss. The run's own model
-    and optimizer are left as they were."""
+    first batch of epoch 0; over a mesh, each rank's rows of it and the
+    averaging step); returns its total loss. The run's own model and
+    optimizer are left as they were."""
     model = copy.deepcopy(run.model)
     optimizer = get_optimizer(model.parameters(), run.cfg.train)
     optimizer.load_state_dict(copy.deepcopy(run.optimizer.state_dict()))
-    step = make_train_step(model, run.cfg, optimizer, run.class_weights)
+    step = make_train_step(model, run.cfg, optimizer, run.class_weights,
+                           run.mesh)
     batch = next(iter(run.data.train_loader.batches(0)))
     g = torch.Generator(device=run.device)
     g.manual_seed(run.cfg.train.seed + 1)
@@ -574,14 +633,35 @@ def _epoch_logs(epoch: int, lr: float, seconds: float,
     return logs
 
 
+def replicate(run: Run) -> None:
+    """Over a mesh, rank 0's parameters and buffers on every rank (after
+    each rank loaded the same weights or checkpoint: a check that they
+    start the same, at the cost of one broadcast)."""
+    if run.mesh is not None:
+        mesh_ops.broadcast_(run.mesh, [*run.model.parameters(),
+                                       *run.model.buffers()])
+
+
 def train(run: Run, run_dir: str) -> Optional[Dict[str, Any]]:
     """`main.py`'s loop from the sanity check on; returns the last
-    epoch's logs (those of the validation with `validation_only`)."""
+    epoch's logs (those of the validation with `validation_only`). Over a
+    mesh every rank runs it; only rank 0 writes and prints, and its logs
+    hold the validation's."""
     cfg, t = run.cfg, run.cfg.train
+    main_rank = run.is_main
     ckpt_dir = os.path.join(run_dir, "checkpoints")
-    artifacts_dir = os.path.join(run_dir, "artifacts")
+    artifacts_dir = os.path.join(run_dir, "artifacts") if main_rank else None
     examples_dir = t.visualization_output_path or os.path.join(run_dir,
                                                                "examples")
+    say = print if main_rank else (lambda *a, **k: None)
+
+    def save(path, epoch, logs):
+        # rank 0 writes; the others wait until the file is complete
+        if main_rank:
+            save_checkpoint(path, run.model, run.optimizer, epoch, logs)
+        if run.mesh is not None:
+            run.mesh.barrier()
+
     next_epoch = 0
     if t.weights_filepath:
         load_weights_file(t.weights_filepath, run.model)
@@ -589,14 +669,16 @@ def train(run: Run, run_dir: str) -> Optional[Dict[str, Any]]:
         last_epoch, _ = load_checkpoint(t.resume_ckpt_filepath, run.model,
                                         run.optimizer)
         next_epoch = last_epoch + 1
+    replicate(run)
     if not t.skip_sanity_check:
-        print(f"[emsanet-torch] sanity train loss: {sanity_check(run):.4f}",
-              flush=True)
+        say(f"[emsanet-torch] sanity train loss: {sanity_check(run):.4f}",
+            flush=True)
     csv_logger = CSVLogger(os.path.join(run_dir, "metrics.csv"))
     if t.validation_only:
         logs = run_validation(run, next_epoch, artifacts_dir, examples_dir)
-        print(json.dumps(logs), flush=True)
-        csv_logger.log({"epoch": next_epoch, **logs})
+        say(json.dumps(logs), flush=True)
+        if main_rank:
+            csv_logger.log({"epoch": next_epoch, **logs})
         return logs
 
     checkpoint_helper = CheckpointHelper(tuple(t.checkpointing_metrics))
@@ -609,6 +691,8 @@ def train(run: Run, run_dir: str) -> Optional[Dict[str, Any]]:
             set_learning_rate(run.optimizer, lr)
             sums, n = None, 0
             for i, batch in enumerate(run.data.train_loader.batches(epoch)):
+                # one dropout generator for every rank, as the JAX
+                # package gives every shard the same key
                 metrics = run.train_step(
                     extract_device_batch(batch, run.device),
                     dropout_generator_for(t.seed, epoch, i, run.device))
@@ -627,44 +711,78 @@ def train(run: Run, run_dir: str) -> Optional[Dict[str, Any]]:
                 improved = checkpoint_helper.check_for_checkpoint(
                     {k.replace("valid_", ""): v for k, v in logs.items()
                      if isinstance(v, (int, float))})
+                if run.mesh is not None:  # rank 0's logs decide
+                    improved = mesh_ops.broadcast_object(run.mesh, improved)
                 if epoch >= t.checkpointing_skip * n_epochs:
                     for metric in improved:
                         suffix = ("best" if t.checkpointing_best_only
                                   else f"epoch_{epoch:04d}")
-                        save_checkpoint(
-                            os.path.join(ckpt_dir,
-                                         f"ckpt_{metric}_{suffix}.pt"),
-                            run.model, run.optimizer, epoch, logs)
+                        save(os.path.join(ckpt_dir,
+                                          f"ckpt_{metric}_{suffix}.pt"),
+                             epoch, logs)
             if ((epoch + 1) % t.resume_ckpt_interval == 0
                     or epoch == n_epochs - 1):
-                save_checkpoint(os.path.join(ckpt_dir, "ckpt_resume.pt"),
-                                run.model, run.optimizer, epoch, logs)
-            csv_logger.log(logs)
-            print(json.dumps(logs), flush=True)
+                save(os.path.join(ckpt_dir, "ckpt_resume.pt"), epoch, logs)
+            if main_rank:
+                csv_logger.log(logs)
+            say(json.dumps(logs), flush=True)
     except KeyboardInterrupt:
         raise
     except Exception:
-        try:
-            save_checkpoint(os.path.join(
-                ckpt_dir, f"ckpt_error__epoch_{epoch:04d}.pt"),
-                run.model, run.optimizer, epoch, {})
-        except Exception:  # the traceback below is what matters
-            pass
-        with open(os.path.join(run_dir, "error.log"), "w") as fh:
-            fh.write(traceback.format_exc())
+        if main_rank:
+            try:
+                save_checkpoint(os.path.join(
+                    ckpt_dir, f"ckpt_error__epoch_{epoch:04d}.pt"),
+                    run.model, run.optimizer, epoch, {})
+            except Exception:  # the traceback below is what matters
+                pass
+            with open(os.path.join(run_dir, "error.log"), "w") as fh:
+                fh.write(traceback.format_exc())
         raise
     finally:
-        csv_logger.write()
+        if main_rank:
+            csv_logger.write()
         run.data.close()
-    with open(os.path.join(run_dir, "finished"), "w") as fh:
-        fh.write("done\n")
+    if main_rank:
+        with open(os.path.join(run_dir, "finished"), "w") as fh:
+            fh.write("done\n")
     return logs
 
 
+def train_rank(mesh: Mesh, cfg: EMSANetConfig, argv: Sequence[str]
+               ) -> Optional[Dict[str, Any]]:
+    """One rank of a data-parallel run: its setup, the run directory
+    that rank 0 makes, and `train`; returns the logs (rank 0's hold the
+    validation's)."""
+    run = setup(cfg, mesh=mesh)
+    run_dir = make_run_dir(cfg, argv) if mesh.is_main else None
+    run_dir = mesh_ops.broadcast_object(mesh, run_dir)
+    if mesh.is_main:
+        print(f"[emsanet-torch] run dir: {run_dir}", flush=True)
+        print(f"[emsanet-torch] data parallel over {mesh.size} ranks "
+              f"({run.device.type})", flush=True)
+    return train(run, run_dir)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    cfg, device, used = parse_args(argv)
-    run = setup(cfg, device)
-    run_dir = make_run_dir(cfg, used)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    a = build_parser().parse_args(argv)
+    cfg = config_from_args(a)
+    if a.distributed:
+        resolve_device(a.device)
+        mesh = mesh_ops.mesh_from_env(a.device)
+        try:
+            train_rank(mesh, cfg, argv)
+        finally:
+            mesh_ops.close_mesh(mesh)
+        return 0
+    n = cfg.train.n_devices or 1
+    if n > 1:
+        resolve_device(a.device)
+        mesh_ops.launch(train_rank, n, a.device, cfg, argv, timeout=None)
+        return 0
+    run = setup(cfg, a.device)
+    run_dir = make_run_dir(cfg, argv)
     print(f"[emsanet-torch] run dir: {run_dir}", flush=True)
     train(run, run_dir)
     return 0

@@ -8,6 +8,20 @@ losses. With `fused_train_head` the semantic head's final x2 stage and
 the full-res CE run as one fused loss (`ops/semantic_train_head.py`).
 BatchNorm running statistics are updated in place during the forward,
 so the step returns only the losses; they stay on the device.
+
+Over a data-parallel mesh (`parallel/mesh.py`) each rank runs the
+forward and backward on its rows with its own BatchNorm batch statistics
+(plain BatchNorm, not `SyncBatchNorm`: the JAX package's `shard_map` step
+normalizes with the shard's statistics, and the pair kernels keep their
+local sums); then ONE `all_reduce` per dtype averages the gradients, the
+BatchNorm running statistics (every float buffer of the model) and the
+losses over the ranks, the JAX package's `pmean`s
+(`emsanet_tpu/training/step.py:273-277`), before `optimizer.step()`.
+Not DDP: DDP's default copies rank 0's buffers instead of averaging
+them, overlaps its buckets with the backward, which the one flat buffer
+does not need to match the JAX step, and wraps the model, which changes
+its `state_dict` keys. A parameter without a gradient keeps none on every
+rank, as in the one-process step.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ from emsanet_tpu_torch.models.layers import dropout_generator
 from emsanet_tpu_torch.ops.semantic_train_head import (
     fused_semantic_head_loss,
 )
+from emsanet_tpu_torch.parallel.mesh import all_mean_
 
 
 def extract_device_batch(batch: Dict[str, Any],
@@ -145,13 +160,16 @@ def model_inputs(batch: Dict[str, Any]) -> Dict[str, Any]:
 
 def make_train_step(
     model: torch.nn.Module, cfg, optimizer: torch.optim.Optimizer,
-    class_weights: Optional[torch.Tensor] = None,
+    class_weights: Optional[torch.Tensor] = None, mesh=None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """`train_step(batch, generator=None)`: forward in train mode (dropout
     drawn from `generator`), the weighted total loss, backward and one
     optimizer step. `batch` holds tensors on the model's device
-    (`extract_device_batch`); returns the losses and 'total_loss'.
-    cfg: EMSANetConfig."""
+    (`extract_device_batch`); returns the losses and 'total_loss'. With
+    `mesh` (`parallel.mesh.Mesh`), `batch` is the rank's rows and the
+    gradients, running statistics and losses are averaged over the ranks
+    before the update (the returned losses are the means). cfg:
+    EMSANetConfig."""
     m, t = cfg.model, cfg.train
     weighting = build_loss_weighting(m.tasks, t.tasks_weighting,
                                      t.instance_weighting)
@@ -177,9 +195,15 @@ def make_train_step(
         )
         total = weighting.reduce_losses(losses)
         total.backward()
-        optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
+        if mesh is not None:
+            all_mean_(mesh, [*(p.grad for p in model.parameters()
+                               if p.grad is not None),
+                             *(b for b in model.buffers()
+                               if b.is_floating_point()),
+                             *metrics.values()])
+        optimizer.step()
         return metrics
 
     return train_step

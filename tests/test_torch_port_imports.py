@@ -51,3 +51,10 @@ def test_guard_sees_the_port():
     assert [n for _, n in _imports(tree) if _forbidden(n)] == [
         "jax.numpy", "emsanet_tpu.ops", "flax", "PIL", "cv2",
         "matplotlib.pyplot", "msgpack"]
+
+
+def test_guard_sees_the_data_parallel_and_export_modules():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"emsanet_tpu_torch/parallel/mesh.py",
+            "emsanet_tpu_torch/parallel/dryrun.py",
+            "emsanet_tpu_torch/export_model.py"} <= names

@@ -365,21 +365,26 @@ def test_weight_map_fails_loudly():
 
 
 @pytest.mark.parametrize("part,override,what", [
-    ("train", {"n_devices": 2}, "n_devices"),
-])
+    ("train", {"n_devices": 3}, "batch_size=8 must be a multiple of the "
+     "3-device mesh"),
+], ids=["train-override0-n_devices"])
 def test_training_is_refused(part, override, what):
     """What the port's training still refuses; the flagship trains, and
-    so do the settings `tests/test_torch_port_variants_config.py` lists."""
+    so do the settings `tests/test_torch_port_variants_config.py` lists.
+    Data parallel training trains too (`n_devices` 2 with batch 8); it
+    refuses a batch that does not divide over the ranks, with
+    `main.py`'s message."""
     cfg = port_config.EMSANetConfig(
         model=port_config.flagship_config(fused_training=True),
-        data=port_config.DataConfig(dataset="synthetic"))
+        data=port_config.DataConfig(dataset="synthetic"),
+        train=port_config.TrainConfig(n_devices=2))
     port_config.validate_train_for_port(cfg)
     cfg = port_config.EMSANetConfig(
         model=port_config.flagship_config(),
         data=port_config.DataConfig(dataset="synthetic"))
     for key, value in override.items():
         setattr(getattr(cfg, part), key, value)
-    with pytest.raises(port_config.NotPortedError, match=what):
+    with pytest.raises(ValueError, match=what):
         port_config.validate_train_for_port(cfg)
 
 

@@ -303,12 +303,14 @@ def test_validation_only_from_a_checkpoint(tmp_path, capsys):
     assert (run_dir / "metrics.csv").read_text().count("\n") == 2
 
 
-@pytest.mark.parametrize("flags", [
-    ["--n-devices", "2"],
-    ["--wandb-mode", "online"],
-    ["--wandb-mode", "offline"],
-])
-def test_unported_flags_are_refused(flags):
-    with pytest.raises(NotPortedError):
+@pytest.mark.parametrize("flags,error", [
+    (["--n-devices", "3"], ValueError),
+    (["--wandb-mode", "online"], NotPortedError),
+    (["--wandb-mode", "offline"], NotPortedError),
+], ids=["flags0", "flags1", "flags2"])
+def test_unported_flags_are_refused(flags, error):
+    """wandb is not ported; `--n-devices` is (data parallel), and refuses
+    a batch size (8) that does not divide over its ranks."""
+    with pytest.raises(error):
         trainer.parse_args(["--device", "cpu", "--dataset", "synthetic",
                             *flags])

@@ -108,11 +108,19 @@ def test_fused_inference_defaults_off_as_in_jax():
 
 @pytest.mark.parametrize("what", ["n_devices", "wandb"])
 def test_still_refused(what):
+    """wandb is not ported. Data parallel training is (`--n-devices 2`
+    parses), and refuses, as `main.py`, a batch that does not divide
+    over its ranks."""
     argv = ["--device", "cpu", "--dataset", "synthetic"]
-    argv += (["--n-devices", "2"] if what == "n_devices"
-             else ["--wandb-mode", "online"])
+    if what == "n_devices":
+        cfg, _, _ = trainer.parse_args(argv + ["--n-devices", "2"])
+        assert cfg.train.n_devices == 2
+        with pytest.raises(ValueError, match="must be a multiple of the "
+                           "3-device mesh"):
+            trainer.parse_args(argv + ["--n-devices", "3"])
+        return
     with pytest.raises(pc.NotPortedError, match="not ported yet"):
-        trainer.parse_args(argv)
+        trainer.parse_args(argv + ["--wandb-mode", "online"])
 
 
 FLAG_SETS = [
