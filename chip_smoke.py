@@ -111,6 +111,15 @@ Phases (any failure exits non-zero and prints no result):
      under torch.profiler (a step whose trace lacks launches of the pair
      kernels is profiled again, as the frames are), each train kernel, its plain version and its
      bound; the loader's host time per batch.
+ 7b. remat (`[remat]`, `--remat`): the flagship b8 640x480 bf16
+     fused_training step without and with remat, from one state (seed
+     0, dropout 0), each with the launch counters set to 0 just before:
+     kernels 9 and 10 must launch in both; the losses equal to 1e-6, the
+     parameters after the step within 2e-2 max abs (the step's backward
+     is not deterministic on the card), the BatchNorm running statistics
+     within 1e-3, each updated once (the recompute's BatchNorm calls
+     update nothing); peak `torch.cuda.max_memory_allocated` and ms a
+     step (CUDA events) logged for each.
   8. validation (`python -m emsanet_tpu_torch.train`'s loop): an R18
      96x128 f32 b2 model after 16 train steps on the card, evaluated
      on the card and, with the same weights, on the CPU: on every
@@ -148,6 +157,21 @@ Phases (any failure exits non-zero and prints no result):
      b2 model with two small cameras (96x128, 106x146) after 4 card steps
      is validated at full resolution on the card and the CPU: eval
      outputs and metrics within phase 8's limits.
+ 9b. prepare (`[prepare]`, `emsanet_tpu_torch/prepare_dataset.py`, on
+     the host, without PIL): the port's JPEG decoder must equal the
+     committed pixels (PIL's decode, as PNG) of every
+     `tests/data/jpeg/*.jpg`; `prepare_cityscapes` on a 1024x2048 raw
+     set the port writes itself (2 train, 1 val frames) must give the
+     documented rgb, semantic, instance and depth maps; the synthetic
+     set prepared at 640x480 is validated on the card through
+     `train.main --validation-only` (the flagship R34 at full width,
+     bf16, b2, decode-planes by 'auto'), kernels 1-8 launched.
+ 9c. resume and config (`[resume]`, `[config]`): `train.main(["resume",
+     <phase 9's run>, "--n-epochs", "3"])` trains and validates one more
+     epoch in a new run directory (kernels 1-7, 9, 10 launched; epoch 2
+     alone in its metrics.csv, finite); `--config
+     configs/nyuv2_multitask.json` with explicit flags parses to the
+     file's values under them.
  10. inference (`python -m emsanet_tpu_torch.{import_torch_checkpoint,
      inference_samples,inference_dataset,inference_time}`): an
      upstream-layout `.pth` of the flagship's seed-0 weights (the port's
@@ -1062,6 +1086,8 @@ def run() -> int:
     torch.cuda.empty_cache()
     train_entries, train_report = train_phase(torch, card)
     entries.extend(train_entries)
+    torch.cuda.empty_cache()
+    remat_report = remat_phase(torch, card)
     # -- 8. validation ------------------------------------------------------
     torch.cuda.empty_cache()
     validation_report = validation_phase(torch, modules)
@@ -1070,6 +1096,11 @@ def run() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
     try:
         dataset_report = dataset_phase(torch, modules, tmp)
+        torch.cuda.empty_cache()
+        prepare_report = prepare_phase(torch, modules, tmp)
+        torch.cuda.empty_cache()
+        resume_report = resume_config_phase(
+            torch, modules, dataset_report["run_dir"])
         torch.cuda.empty_cache()
         inference_report = inference_phase(torch, modules, tmp)
     finally:
@@ -1093,8 +1124,11 @@ def run() -> int:
                    "grouping_center_sets": grouping_sets,
                    "lookup_cases": lookup_report,
                    "train": train_report,
+                   "remat": remat_report,
                    "validation": validation_report,
                    "dataset": dataset_report,
+                   "prepare": prepare_report,
+                   "resume_config": resume_report,
                    "inference": inference_report,
                    "variants": variants_report,
                    "parallel": parallel_report,
@@ -1881,7 +1915,8 @@ def profile_frame(frame, batch):
 
 def train_setup(torch, height, width, backbone, batch_size, dtype, device,
                 dropout, seed=0,
-                tasks=("semantic", "instance", "orientation", "scene")):
+                tasks=("semantic", "instance", "orientation", "scene"),
+                **model):
     """(model, optimizer, step, device batch, cfg, loader seconds per
     batch) of a synthetic-data training configuration: the first of 3
     batches drawn through the train preprocessor and the loader."""
@@ -1906,7 +1941,7 @@ def train_setup(torch, height, width, backbone, batch_size, dtype, device,
             tasks=tasks, enable_panoptic=True, input_height=height,
             input_width=width,
             rgb_encoder_backbone=backbone, depth_encoder_backbone=backbone,
-            fused_training=True, **drop),
+            fused_training=True, **drop, **model),
         data=pc.DataConfig(dataset="synthetic", batch_size=batch_size,
                            synthetic_n_samples=3 * batch_size),
         train=pc.TrainConfig(mixed_precision=dtype == "bfloat16",
@@ -2634,6 +2669,7 @@ def dataset_phase(torch, modules, tmp):
     report["flagship"] = {"setup_s": setup_s, "loop_s": loop_s,
                           **times, "launches": launches,
                           "epoch_1": logs}
+    report["run_dir"] = run_dir  # phase 9c resumes it
     ckpt = os.path.join(run_dir, "checkpoints", "ckpt_resume.pt")
     del run
     torch.cuda.empty_cache()
@@ -2701,6 +2737,370 @@ def dataset_phase(torch, modules, tmp):
     report["card_vs_cpu"] = {"outputs": outs, "metric_diffs": diffs}
     del card_run, cpu_run
     torch.set_grad_enabled(False)
+    return report
+
+
+# phase 7b: --remat. The flagship b8 640x480 bf16 fused_training step
+# without and with remat, from one state (seed 0) at dropout 0; the
+# bounds: the losses (the forward is the same) to 1e-6 relative, the
+# parameters after the step within the step's own non-determinism on the
+# card (the PPM's adaptive pooling and antialiased resize have no
+# deterministic CUDA backward: ~1e-3 to 1e-2 max abs between two plain
+# steps, ROADMAP.md), the BatchNorm running statistics to 1e-3 max abs
+REMAT_LOSS_RTOL = 1e-6
+REMAT_PARAM_ATOL = 2e-2
+REMAT_BN_ATOL = 1e-3
+REMAT_TIMED_STEPS = 5
+
+
+def remat_phase(torch, card):
+    """[remat]: peak memory, step ms and losses of the step without and
+    with `--remat` (phase 7b); each run's launches counted from 0."""
+    from emsanet_tpu_torch.bench import time_cuda
+    from emsanet_tpu_torch.models import layers
+    from emsanet_tpu_torch.ops import nbt1d_train as tm
+    from emsanet_tpu_torch.ops import semantic_train_head as hm
+    from emsanet_tpu_torch.train import dropout_generator_for
+
+    torch.set_grad_enabled(True)
+    modules = {"nbt1d_train": tm, "semantic_train_head": hm}
+    t_phase = time.perf_counter()
+    runs = {}
+    update = layers.BatchNorm.update_running_stats
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        model, _, step, batch, _, _ = train_setup(
+            torch, 480, 640, "resnet34", 8, "bfloat16", "cuda", False,
+            remat=remat)
+        updates = {"first": 0, "recompute": 0}
+
+        def counted(bn, mean, var):
+            updates["recompute" if layers._RECOMPUTING[0] else "first"] += 1
+            return update(bn, mean, var)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts(modules, TRAIN_KERNELS)
+        layers.BatchNorm.update_running_stats = counted
+        try:
+            metrics = step(batch, dropout_generator_for(0, 0, 0, "cuda"))
+            torch.cuda.synchronize()
+        finally:
+            layers.BatchNorm.update_running_stats = update
+        peak = torch.cuda.max_memory_allocated()
+        launches = counts(modules, TRAIN_KERNELS)
+        missing = [k for k, n in launches.items() if n <= 0]
+        if missing:
+            raise AssertionError(f"[remat] remat={remat}: kernels {missing} "
+                                 "were not launched")
+        _finite_losses(metrics, f"[remat] remat={remat}")
+        state = {k: v.detach().clone() for k, v in
+                 model.state_dict().items()}
+        step_ms = time_cuda(
+            lambda: step(batch, dropout_generator_for(0, 0, 1, "cuda")), 1,
+            REMAT_TIMED_STEPS)
+        runs[remat] = {
+            "losses": {k: float(v) for k, v in metrics.items()},
+            "peak_mb": peak / 2**20, "base_mb": base / 2**20,
+            "step_ms": step_ms, "launches": launches,
+            "bn_updates": dict(updates), "state": state}
+        log(f"[remat] remat={remat}: b8 640x480 bf16 step: peak "
+            f"{peak / 2**20:.1f} MiB allocated ({base / 2**20:.1f} MiB "
+            f"before the step), {step_ms:.2f} ms a step (CUDA events, "
+            f"{REMAT_TIMED_STEPS} steps); running-statistics updates "
+            f"{json.dumps(updates)}; launches {json.dumps(launches)}; "
+            f"losses {json.dumps(runs[remat]['losses'])}")
+        del model, step, batch, metrics
+    plain, remat = runs[False], runs[True]
+    bad = [k for k, v in plain["losses"].items()
+           if abs(remat["losses"][k] - v) > REMAT_LOSS_RTOL * max(abs(v),
+                                                                   1e-30)]
+    params = {k: float((remat["state"][k].float()
+                        - v.float()).abs().max())
+              for k, v in plain["state"].items() if v.is_floating_point()}
+    bn = {k: d for k, d in params.items()
+          if k.endswith(("running_mean", "running_var"))}
+    weights = {k: d for k, d in params.items() if k not in bn}
+    worst_w = max(weights, key=weights.get)
+    worst_bn = max(bn, key=bn.get)
+    if (bad or weights[worst_w] > REMAT_PARAM_ATOL
+            or bn[worst_bn] > REMAT_BN_ATOL
+            or remat["bn_updates"]["first"] != plain["bn_updates"]["first"]
+            or plain["bn_updates"]["recompute"] != 0
+            or remat["bn_updates"]["recompute"] == 0):
+        raise AssertionError(
+            f"[remat] losses differ at {bad}; parameters max abs "
+            f"{weights[worst_w]:.3g} ({worst_w}), BatchNorm statistics "
+            f"{bn[worst_bn]:.3g} ({worst_bn}); updates plain "
+            f"{plain['bn_updates']} remat {remat['bn_updates']}")
+    report = {
+        "peak_mb": {str(k): r["peak_mb"] for k, r in runs.items()},
+        "step_ms": {str(k): r["step_ms"] for k, r in runs.items()},
+        "losses": {str(k): r["losses"] for k, r in runs.items()},
+        "launches": {str(k): r["launches"] for k, r in runs.items()},
+        "bn_updates": {str(k): r["bn_updates"] for k, r in runs.items()},
+        "param_max_abs": weights[worst_w], "bn_max_abs": bn[worst_bn],
+        "card": card, "seconds": time.perf_counter() - t_phase}
+    mem = remat["peak_mb"] / plain["peak_mb"]
+    log(f"[remat] peak memory {plain['peak_mb']:.1f} -> "
+        f"{remat['peak_mb']:.1f} MiB ({mem:.3f}x), "
+        f"step {plain['step_ms']:.2f} -> {remat['step_ms']:.2f} ms "
+        f"({remat['step_ms'] / plain['step_ms']:.3f}x); losses equal to "
+        f"{REMAT_LOSS_RTOL:g}; parameters max abs {weights[worst_w]:.3g} "
+        f"({worst_w}), BatchNorm statistics {bn[worst_bn]:.3g}, each "
+        f"updated once ({remat['bn_updates']['first']} updates; the "
+        f"recompute's {remat['bn_updates']['recompute']} BatchNorm calls "
+        f"updated nothing); {card}")
+    log(f"[remat] phase {report['seconds']:.1f} s")
+    torch.set_grad_enabled(False)
+    return report
+
+
+# phase 9b: dataset preparation on the host, with the port's own readers
+# and writer. A Cityscapes-layout raw set at Cityscapes' own size, and
+# the synthetic set at 640x480, validated on the card
+PREPARE_CITYSCAPES = (1024, 2048, 2, 1)  # height, width, train, val
+PREPARE_SYNTHETIC = (2, 4, 480, 640)  # train, test, height, width
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "jpeg")
+
+
+def _cityscapes_raw(root, height, width, n_train, n_val):
+    """Raw Cityscapes files written with the port's PNG writer: label ids,
+    instance ids (labelId * 1000 + k for things), disparity (p = 256 d +
+    1); returns {(split, id): (label ids, instance ids, disparity)}."""
+    import numpy as np
+
+    from emsanet_tpu_torch.datasets.png import write_png
+
+    rng = np.random.RandomState(0)
+    written = {}
+    for split, raw_split, n in (("train", "train", n_train),
+                                ("valid", "val", n_val)):
+        for i in range(n):
+            sid = f"city_{i:06d}_000019"
+            lab = rng.choice([3, 7, 11, 21, 23, 24, 26], (height, width)
+                             ).astype(np.uint8)
+            inst = lab.astype(np.uint16)
+            box = min(64, height // 4, width // 4)
+            for k in range(4):  # car and person things
+                y = rng.randint(0, height - box)
+                x = rng.randint(0, width - box)
+                cls = (26, 24)[k % 2]
+                lab[y:y + box, x:x + box] = cls
+                inst[y:y + box, x:x + box] = cls * 1000 + k
+            disp = rng.randint(0, 30000, (height, width)).astype(np.uint16)
+            rgb = rng.randint(0, 256, (height, width, 3)).astype(np.uint8)
+            for kind, suffix, arr in (
+                    ("leftImg8bit", "leftImg8bit", rgb),
+                    ("gtFine", "gtFine_labelIds", lab),
+                    ("gtFine", "gtFine_instanceIds", inst),
+                    ("disparity", "disparity", disp)):
+                write_png(os.path.join(root, kind, raw_split, "city",
+                                       f"{sid}_{suffix}.png"), arr)
+            written[split, sid] = (rgb, lab, inst, disp)
+    return written
+
+
+def prepare_phase(torch, modules, tmp):
+    """[prepare] (phase 9b): (a) the port's JPEG decoder equals the
+    committed pixels of `tests/data/jpeg/*.jpg` (PIL's decode, as PNG);
+    (b) `prepare_dataset.prepare_cityscapes` on a Cityscapes-layout raw
+    set at 1024x2048 that the port writes itself, checked against the
+    tool's documented mapping; (c) `prepare_synthetic` at 640x480, then
+    one validation of it on the card (`train.main --validation-only`,
+    the flagship R34 at full width, validation b2, decode-planes by
+    'auto') with the launch counters set to 0 just before: kernels 1-8
+    must launch."""
+    import numpy as np
+
+    from emsanet_tpu_torch import prepare_dataset
+    from emsanet_tpu_torch import train as trainer
+    from emsanet_tpu_torch.datasets.jpeg import read_jpeg
+    from emsanet_tpu_torch.datasets.png import read_png
+
+    t_phase = time.perf_counter()
+    report = {}
+    # (a) the JPEG fixtures
+    names = sorted(f[:-4] for f in os.listdir(JPEG_FIXTURES)
+                   if f.endswith(".jpg"))
+    if not names:
+        raise AssertionError(f"[prepare] no JPEG fixtures in {JPEG_FIXTURES}")
+    for name in names:
+        got = read_jpeg(os.path.join(JPEG_FIXTURES, name + ".jpg"))
+        want = read_png(os.path.join(JPEG_FIXTURES, name + ".png"))
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"[prepare] JPEG fixture {name}: the "
+                                 "decoder differs from PIL's pixels")
+    log(f"[prepare] JPEG decoder equals PIL's pixels bit for bit on "
+        f"{len(names)} fixtures: {names}")
+    report["jpeg_fixtures"] = names
+
+    # (b) Cityscapes
+    raw, out = os.path.join(tmp, "cityscapes_raw"), os.path.join(
+        tmp, "cityscapes")
+    t0 = time.perf_counter()
+    written = _cityscapes_raw(raw, *PREPARE_CITYSCAPES)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prepare_dataset.prepare_cityscapes(raw, out)
+    prepare_s = time.perf_counter() - t0
+    lut = np.zeros(64, np.uint8)
+    for k, v in prepare_dataset._CITYSCAPES_LABEL_TO_TRAIN.items():
+        lut[k] = v + 1
+    for (split, sid), (rgb, lab, inst, disp) in written.items():
+        base = os.path.join(out, split)
+        got_inst = read_png(os.path.join(base, "instance", sid + ".png"))
+        things = np.where(inst >= 1000, inst, 0)
+        ids = np.unique(things[things > 0])
+        want_inst = np.searchsorted(ids, things) + 1
+        want_inst[things == 0] = 0
+        d = np.where(disp > 0, (disp.astype(np.float32) - 1) / 256, 0)
+        want_depth = np.clip(np.where(
+            d > 0, prepare_dataset._CITYSCAPES_BF / np.maximum(d, 1e-6), 0)
+            * 100.0, 0, 65535).astype(np.uint16)
+        checks = {
+            "rgb": np.array_equal(read_png(os.path.join(
+                base, "rgb", sid + ".png")), rgb),
+            "semantic": np.array_equal(read_png(os.path.join(
+                base, "semantic_19", sid + ".png")), lut[lab]),
+            "instance": np.array_equal(got_inst, want_inst),
+            "depth": np.array_equal(read_png(os.path.join(
+                base, "depth", sid + ".png")), want_depth)}
+        if not all(checks.values()):
+            raise AssertionError(f"[prepare] cityscapes {split}/{sid}: "
+                                 f"{checks}")
+    with open(os.path.join(out, "meta.json")) as fh:
+        meta = json.load(fh)
+    if len(meta["semantic_labels"]) != 20:
+        raise AssertionError("[prepare] cityscapes meta.json: "
+                             f"{len(meta['semantic_labels'])} labels")
+    h, w, n_train, n_val = PREPARE_CITYSCAPES
+    log(f"[prepare] cityscapes {h}x{w}, {n_train} train + {n_val} val "
+        f"frames: raw files written in {write_s:.1f} s, prepared in "
+        f"{prepare_s:.1f} s (host); rgb, semantic, instance and depth "
+        f"equal to the documented mapping; meta.json depth mean "
+        f"{meta['depth_stats']['mean']:.1f}")
+    report["cityscapes"] = {"write_s": write_s, "prepare_s": prepare_s}
+
+    # (c) synthetic, validated on the card
+    root = os.path.join(tmp, "prepared_synthetic")
+    n_train, n_test, h, w = PREPARE_SYNTHETIC
+    t0 = time.perf_counter()
+    prepare_dataset.prepare_synthetic(root, n_train, n_test, h, w)
+    report["synthetic_prepare_s"] = time.perf_counter() - t0
+    argv = ["--dataset", "nyuv2", "--dataset-path", root, "--tasks",
+            "semantic", "instance", "orientation", "scene",
+            "--enable-panoptic", "--mixed-precision", "--fused-inference",
+            "--batch-size", "2", "--validation-batch-size", "2",
+            "--head-decode-fusion", "auto", "--n-workers", "4",
+            "--validation-only", "--skip-sanity-check",
+            "--results-basepath", os.path.join(tmp, "prepare_runs")]
+    reset_counts(modules)
+    t0 = time.perf_counter()
+    if trainer.main(argv) != 0:
+        raise AssertionError("[prepare] the validation did not end with 0")
+    torch.cuda.synchronize()
+    valid_s = time.perf_counter() - t0
+    launches = counts(modules)
+    missing = sorted(k for k, n in launches.items() if n <= 0)
+    if missing:
+        raise AssertionError(f"[prepare] the validation of the prepared "
+                             f"set did not launch {missing}")
+    (run_dir,) = os.listdir(os.path.join(tmp, "prepare_runs", "nyuv2"))
+    with open(os.path.join(tmp, "prepare_runs", "nyuv2", run_dir,
+                           "metrics.csv")) as fh:
+        header, row = [r.split(",") for r in fh.read().strip().splitlines()]
+    logs = dict(zip(header, row))
+    bad = [k for k, v in logs.items() if k.startswith("valid_")
+           and not math.isfinite(float(v))]
+    if bad:
+        raise AssertionError(f"[prepare] validation metrics not finite: "
+                             f"{bad}")
+    log(f"[prepare] synthetic {w}x{h} ({n_train} train, {n_test} test) "
+        f"prepared in {report['synthetic_prepare_s']:.1f} s; validation "
+        f"of its test split on the card (flagship R34, bf16, b2, "
+        f"decode-planes): {valid_s:.1f} s with setup; launches "
+        f"{json.dumps(launches)}; valid_semantic_miou "
+        f"{logs.get('valid_semantic_miou')}")
+    report.update(valid_s=valid_s, launches=launches,
+                  seconds=time.perf_counter() - t_phase)
+    log(f"[prepare] phase {report['seconds']:.1f} s")
+    return report
+
+
+def resume_config_phase(torch, modules, run_dir):
+    """Phase 9c: `train.main(["resume", run_dir, "--n-epochs", "3"])`
+    continues phase 9's 2-epoch flagship run (its recorded argv, its
+    resume checkpoint) for one more epoch, with the launch counters set
+    to 0 just before: kernels 1-7, 9 and 10 must launch, the new run's
+    metrics.csv holds epoch 2 alone, finite; then `--config
+    configs/nyuv2_multitask.json` with explicit overrides parses to the
+    file's values under the flags."""
+    from emsanet_tpu_torch import train as trainer
+    from emsanet_tpu_torch.ops import nbt1d_train as tm
+    from emsanet_tpu_torch.ops import semantic_train_head as hm
+
+    t_phase = time.perf_counter()
+    torch.set_grad_enabled(True)
+    all_modules = {**modules, "nbt1d_train": tm, "semantic_train_head": hm}
+    all_kernels = KERNELS + TRAIN_KERNELS
+    base = os.path.dirname(run_dir)
+    before = set(os.listdir(base))
+    reset_counts(all_modules, all_kernels)
+    if trainer.main(["resume", run_dir, "--n-epochs", "3"]) != 0:
+        raise AssertionError("[resume] the resumed run did not end with 0")
+    torch.cuda.synchronize()
+    launches = counts(all_modules, all_kernels)
+    need = (PATH_KERNELS["decode-planes"] - {"decoder_trunk"}) | {
+        name for name, *_ in TRAIN_KERNELS}
+    missing = sorted(k for k in need if launches[k] <= 0)
+    (new,) = set(os.listdir(base)) - before
+    with open(os.path.join(base, new, "metrics.csv")) as fh:
+        header, *rows = [r.split(",") for r in
+                         fh.read().strip().splitlines()]
+    epochs = [dict(zip(header, r)) for r in rows]
+    with open(os.path.join(base, new, "argsv.txt")) as fh:
+        argv = fh.read()
+    bad = [k for e in epochs for k, v in e.items()
+           if k.startswith(("train_", "valid_"))
+           and not math.isfinite(float(v))]
+    if (missing or bad or [e["epoch"] for e in epochs] != ["2"]
+            or "--resume-ckpt-filepath" not in argv):
+        raise AssertionError(f"[resume] kernels {missing} not launched, "
+                             f"epochs {[e['epoch'] for e in epochs]}, not "
+                             f"finite {bad}, argv {argv}")
+    log(f"[resume] resume {os.path.basename(run_dir)} --n-epochs 3: epoch "
+        f"2 in a new run directory; launches {json.dumps(launches)}; "
+        f"{json.dumps(epochs[0])}")
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "nyuv2_multitask.json")
+    with open(config) as fh:
+        file_cfg = json.load(fh)
+    cfg, _, _ = trainer.parse_args(["--config", config, "--batch-size", "4",
+                                    "--n-epochs", "3", "--notes", "smoke"])
+    got = {"tasks": list(cfg.model.tasks),
+           "rgb_encoder_backbone": cfg.model.rgb_encoder_backbone,
+           "tasks_weighting": list(cfg.train.tasks_weighting),
+           "validation_skip": cfg.train.validation_skip,
+           "batch_size": cfg.data.batch_size,
+           "n_epochs": cfg.train.n_epochs, "notes": cfg.train.notes,
+           "learning_rate": cfg.train.learning_rate}
+    want = {"tasks": file_cfg["model"]["tasks"],
+            "rgb_encoder_backbone": file_cfg["model"]["rgb_encoder_backbone"],
+            "tasks_weighting": file_cfg["train"]["tasks_weighting"],
+            "validation_skip": file_cfg["train"]["validation_skip"],
+            "batch_size": 4, "n_epochs": 3, "notes": "smoke",
+            "learning_rate": file_cfg["train"]["learning_rate"] * 4 / 8}
+    if got != want:
+        raise AssertionError(f"[config] parsed {got}, expected {want}")
+    log(f"[config] --config configs/nyuv2_multitask.json --batch-size 4 "
+        f"--n-epochs 3 --notes smoke: {json.dumps(got)}")
+    torch.set_grad_enabled(False)
+    report = {"launches": launches, "epoch_2": epochs[0], "config": got,
+              "seconds": time.perf_counter() - t_phase}
+    log(f"[resume] phase {report['seconds']:.1f} s")
     return report
 
 

@@ -33,6 +33,7 @@ falls back to another path.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from typing import Optional, Tuple, Union
 
@@ -134,6 +135,10 @@ class ModelConfig:
     rgbd_encoder_backbone_pretrained_weights_filepath: Optional[str] = None
 
     compute_dtype: str = "float32"
+    # training: recompute each encoder stage and each decoder module in
+    # the backward pass (`torch.utils.checkpoint`), keeping only their
+    # inputs; the BatchNorms' running statistics update once
+    remat: bool = False
     fused_inference: bool = False
     # training: stride-1 NBt1D tails through the pair kernels
     # (ops/nbt1d_train.py) and, with fused_train_head, the semantic head's
@@ -207,6 +212,11 @@ class DataConfig:
     scannet_subsample: int = 50
     validation_scannet_subsample: int = 100
     hypersim_subsample: int = 1
+    # recorded only (as in the JAX package): a prepared dataset carries
+    # its depth statistics in meta.json; the first warns
+    hypersim_use_old_depth_stats: bool = False
+    sunrgbd_depth_do_not_force_mm: bool = False
+    sunrgbd_instances_version: str = "panopticndt"
     # the indoor-domestic scene labels are the default;
     # `use_original_scene_labels` keeps each dataset's own
     use_original_scene_labels: bool = False
@@ -256,6 +266,11 @@ class TrainConfig:
     seed: int = 0
     n_devices: Optional[int] = None
     mixed_precision: bool = False
+    # the run's bookkeeping, recorded into args.json
+    hostname: str = ""
+    notes: str = ""
+    disable_progress_bars: bool = False
+    debug: bool = False
 
 
 @dataclass
@@ -287,6 +302,12 @@ class EMSANetConfig:
                             m.encoder_backbone_pretrained_weights_filepath)
         if d.use_original_scene_labels:
             d.scene_use_indoor_domestic_labels = False
+        if d.hypersim_use_old_depth_stats:
+            warnings.warn(
+                "hypersim_use_old_depth_stats: v030 depth stats are not "
+                "vendorable offline; the prepared meta.json stats are used "
+                "instead (weights trained before Apr 2022 may need manual "
+                "depth-stat overrides).")
         t.learning_rate = t.learning_rate * d.batch_size / 8
         main_dataset = d.dataset.split(":")[0].split("[")[0]
         if main_dataset in ("cityscapes", "hypersim", "scannet"):

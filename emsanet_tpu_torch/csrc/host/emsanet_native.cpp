@@ -8,7 +8,8 @@
 // releases the GIL. The numpy bodies in `preprocessing/transforms.py`
 // are the plain versions the tests hold these against. Added here:
 // `png_unfilter`, the row-filter inverse of the PNG reader
-// (`datasets/png.py`).
+// (`datasets/png.py`), and `jpeg_decode`, the baseline JPEG decoder of
+// `datasets/jpeg.py` (in jpeg_baseline.h).
 
 #include <cmath>
 #include <cstdint>
@@ -368,3 +369,5 @@ int png_unfilter(const uint8_t* data, int64_t height, int64_t stride,
 }
 
 }  // extern "C"
+
+#include "jpeg_baseline.h"

@@ -8,7 +8,12 @@ filter for RGB, bicubic (a = -0.5) with its support widened by the scale
 when downscaling, one pass per axis (width first) in PIL's fixed-point
 arithmetic (22 fraction bits, coefficients rounded half away from zero,
 each pass rounded and clipped to uint8). An image of the asked size
-comes back as an unchanged copy.
+comes back as an unchanged copy. `resize_bilinear_u8` is the same with
+PIL's BILINEAR filter (the triangle, support 1 widened by the scale).
+`resize_nearest(img, h, w)` is PIL's NEAREST resize: the source pixel
+floor((x + 0.5) * scale), computed as PIL computes it for the array's
+mode (an accumulated position for 8-bit images, a direct product for
+16-bit ones, which PIL resamples on another path).
 
 `draw_line` fills the pixels whose centres lie within (width - 1) / 2 +
 0.5 of the segment and between its ends, with the ends truncated to
@@ -36,13 +41,22 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
                     np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray,
-                                                          np.ndarray]:
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+_FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_bilinear, 1.0)}
+
+
+def _coefficients(in_size: int, out_size: int, kind: str = "bicubic"
+                  ) -> Tuple[np.ndarray, np.ndarray]:
     """(taps (out, k) source indices, fixed-point weights (out, k)) of
     one axis, as PIL's `precompute_coeffs` and `normalize_coeffs_8bpc`."""
+    kernel, filter_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
@@ -50,8 +64,8 @@ def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray,
                       in_size) - xmin
     offs = np.arange(ksize)
     used = offs[None, :] < xmax[:, None]
-    w = _bicubic((offs[None, :] + xmin[:, None] - center[:, None] + 0.5)
-                 / filterscale) * used
+    w = kernel((offs[None, :] + xmin[:, None] - center[:, None] + 0.5)
+               / filterscale) * used
     total = w.sum(1, keepdims=True)
     w = np.where(total != 0.0, w / np.where(total != 0.0, total, 1.0), w)
     w = w * (1 << _PRECISION_BITS)
@@ -60,8 +74,9 @@ def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray,
     return taps, np.where(used, k, 0)
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    taps, k = _coefficients(img.shape[axis], out_size)
+def _resample_axis(img: np.ndarray, out_size: int, axis: int,
+                   kind: str = "bicubic") -> np.ndarray:
+    taps, k = _coefficients(img.shape[axis], out_size, kind)
     shape = [1] * img.ndim
     shape[axis] = out_size
     acc = np.full(img.shape[:axis] + (out_size,) + img.shape[axis + 1:],
@@ -72,19 +87,55 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def resize_bicubic_u8(img: np.ndarray, height: int, width: int
-                      ) -> np.ndarray:
-    """PIL's `Image.resize((width, height))` of a uint8 image."""
+def _resize_u8(img: np.ndarray, height: int, width: int,
+               kind: str) -> np.ndarray:
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3):
-        raise ValueError(f"resize_bicubic_u8: uint8 (H, W[, C]) expected, "
+        raise ValueError(f"resize_{kind}_u8: uint8 (H, W[, C]) expected, "
                          f"got {img.dtype} {img.shape}")
     out = img
     if width != img.shape[1]:
-        out = _resample_axis(out, width, 1)
+        out = _resample_axis(out, width, 1, kind)
     if height != img.shape[0]:
-        out = _resample_axis(out, height, 0)
+        out = _resample_axis(out, height, 0, kind)
     return out.copy() if out is img else out
+
+
+def resize_bicubic_u8(img: np.ndarray, height: int, width: int
+                      ) -> np.ndarray:
+    """PIL's `Image.resize((width, height))` of a uint8 image."""
+    return _resize_u8(img, height, width, "bicubic")
+
+
+def resize_bilinear_u8(img: np.ndarray, height: int, width: int
+                       ) -> np.ndarray:
+    """PIL's `Image.resize((width, height), Image.BILINEAR)` of a uint8
+    image."""
+    return _resize_u8(img, height, width, "bilinear")
+
+
+def _nearest_taps(in_size: int, out_size: int, accumulate: bool
+                  ) -> np.ndarray:
+    scale = in_size / out_size
+    if not accumulate:  # PIL's affine_transform + nearest_filter16
+        return np.array([int(scale * (i + 0.5)) for i in range(out_size)])
+    taps, pos = [], scale * 0.5  # PIL's ImagingScaleAffine
+    for _ in range(out_size):
+        taps.append(int(pos))
+        pos += scale
+    return np.minimum(np.array(taps), in_size - 1)
+
+
+def resize_nearest(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """PIL's `Image.fromarray(img).resize((width, height), Image.NEAREST)`
+    of a uint8 or uint16 (H, W[, C]) image."""
+    img = np.asarray(img)
+    if img.shape[:2] == (height, width):
+        return img.copy()
+    accumulate = img.dtype != np.uint16
+    rows = _nearest_taps(img.shape[0], height, accumulate)
+    cols = _nearest_taps(img.shape[1], width, accumulate)
+    return img[rows[:, None], cols[None, :]]
 
 
 def draw_line(img: np.ndarray, p0: Sequence[float], p1: Sequence[float],

@@ -26,6 +26,8 @@ from emsanet_tpu_torch.models.layers import (
     SqueezeExcitation,
     apply_blocks_fused,
     get_activation,
+    remat_active,
+    remat_call,
 )
 
 STAGE_FEATURES = (64, 128, 256, 512)
@@ -119,9 +121,10 @@ class ResNetStage(nn.Module):
                  stride: int, dropout_p: float = 0.0, se: bool = False,
                  normalization: str = "batchnorm", activation: str = "relu",
                  fused_inference: bool = False,
-                 fused_training: bool = False):
+                 fused_training: bool = False, remat: bool = False):
         super().__init__()
         cls = BLOCK_CLASSES[block]
+        self.remat = remat
         self.n_blocks = n_blocks
         self.se = se
         self.fused_inference = fused_inference
@@ -138,6 +141,11 @@ class ResNetStage(nn.Module):
                     c, activation=activation))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if remat_active(self):
+            return remat_call(self._forward, x)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         blocks = [getattr(self, f"block{i}") for i in range(self.n_blocks)]
         if not self.se:
             return apply_blocks_fused(blocks, x, self.fused_training,
@@ -151,9 +159,11 @@ def make_backbone_stages(
     backbone: str, block: str, cin: int, dropout_p: float = 0.0,
     normalization: str = "batchnorm", activation: str = "relu",
     fused_inference: bool = False, fused_training: bool = False,
+    remat: bool = False,
 ) -> Tuple[ResNetStem, List[ResNetStage]]:
     """(stem, [stage0..stage3]) of a backbone named as `get_backbone_spec`
-    reads it; a bottleneck backbone ignores `block`."""
+    reads it; a bottleneck backbone ignores `block`. With `remat` each
+    stage recomputes its forward in the backward pass (`remat_call`)."""
     spec = get_backbone_spec(backbone)
     block = "bottleneck" if spec.bottleneck else block
     stem = ResNetStem(cin, normalization=normalization,
@@ -164,6 +174,6 @@ def make_backbone_stages(
                             spec.stage_strides, spec.stage_out_features):
         stages.append(ResNetStage(block, n, c, f, s, dropout_p, spec.se,
                                   normalization, activation,
-                                  fused_inference, fused_training))
+                                  fused_inference, fused_training, remat))
         c = out
     return stem, stages

@@ -108,8 +108,10 @@ class DecoderModule(nn.Module):
                  side_output_channels: Optional[int] = None,
                  fused_training: bool = False, block: str = "nonbottleneck1d",
                  normalization: str = "batchnorm", activation: str = "relu",
-                 fused_inference: bool = False, train_polyphase: bool = False):
+                 fused_inference: bool = False, train_polyphase: bool = False,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv_in = ConvNormAct(cin, features, (3, 3),
                                    normalization=normalization,
                                    activation=activation)
@@ -137,6 +139,11 @@ class DecoderModule(nn.Module):
 
     def forward(self, x, skips):
         """(x, side output or None; side outputs only in train mode)."""
+        if layers.remat_active(self):
+            return layers.remat_call(self._forward, x, skips)
+        return self._forward(x, skips)
+
+    def _forward(self, x, skips):
         x = self.conv_in(x)
         blocks = [getattr(self, f"block{i}") for i in range(self.n_blocks)]
         x = apply_blocks_fused(blocks, x, self.fused_training,
@@ -256,7 +263,7 @@ class DenseDecoder(_TaskHead, nn.Module):
                  block: str = "nonbottleneck1d",
                  normalization: str = "batchnorm", activation: str = "relu",
                  fused_inference: bool = False,
-                 train_polyphase: bool = False):
+                 train_polyphase: bool = False, remat: bool = False):
         super().__init__()
         self.task = task
         self.with_orientation = with_orientation
@@ -271,7 +278,8 @@ class DenseDecoder(_TaskHead, nn.Module):
                 c, f, n_blocks, fusion, skip_channels.get(ds), upsampling,
                 zero_init_residual, block_dropout_p,
                 n_head if side_outputs else None, fused_training, block,
-                normalization, activation, fused_inference, train_polyphase)
+                normalization, activation, fused_inference, train_polyphase,
+                remat)
             setattr(self, f"module{i}", module)
             c = module.n_channels_out
         self.downsamplings = tuple(downsamplings)

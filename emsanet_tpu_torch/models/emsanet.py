@@ -105,6 +105,7 @@ class EMSANet(nn.Module):
                                       and cfg.fused_train_head),
                     block=getattr(cfg, f"{task}_decoder_block"),
                     train_polyphase=cfg.train_polyphase_upsampling,
+                    remat=cfg.remat,
                     **common,
                 )
             setattr(self, f"{task}_decoder", decoder)

@@ -78,7 +78,7 @@ class FusedEncoder(nn.Module):
                 backbone, getattr(cfg, f"{mod}_encoder_backbone_block"),
                 MODALITY_CHANNELS[mod], cfg.dropout_p,
                 cfg.encoder_normalization, cfg.activation,
-                cfg.fused_inference, cfg.fused_training,
+                cfg.fused_inference, cfg.fused_training, cfg.remat,
             )
             setattr(self, f"{mod}_stem", stem)
             for i, st in enumerate(stages):

@@ -20,6 +20,13 @@ BatchNorm uses batch statistics with flax's semantics, and the stride-1
 NBt1D tails of `apply_blocks_fused` go through the train pair kernels
 (`ops/nbt1d_train.py`) where `fused_train` and the JAX package's gate
 allow it.
+
+`remat_call` runs a module's forward under `torch.utils.checkpoint`
+(`--remat`, the JAX package's `nn.remat`): only its inputs stay for the
+backward pass, which runs the forward again. That recompute draws the
+same dropout masks (the dropout generator's state is restored) and
+leaves the BatchNorms' running statistics alone, as flax's remat drops
+the recompute's updates.
 """
 
 from __future__ import annotations
@@ -45,6 +52,50 @@ GROUPS = 32  # flax GroupNorm's num_groups, as the JAX package builds it
 
 _DROPOUT_GENERATOR: contextvars.ContextVar[Optional[torch.Generator]] = (
     contextvars.ContextVar("dropout_generator", default=None))
+
+
+# set while `remat_call`'s backward recomputes a forward: the BatchNorms'
+# running statistics were updated by the first pass
+_RECOMPUTING = [0]
+
+
+@contextlib.contextmanager
+def _recompute(generator: Optional[torch.Generator],
+               state: Optional[torch.Tensor]) -> Iterator[None]:
+    """The context of a recompute: the dropout generator as the first
+    pass found it (a copy, so the original goes on from where it is),
+    and no running-statistics update."""
+    copy = None
+    if generator is not None:
+        copy = torch.Generator(device=generator.device)
+        copy.set_state(state)
+    token = _DROPOUT_GENERATOR.set(copy)
+    _RECOMPUTING[0] += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTING[0] -= 1
+        _DROPOUT_GENERATOR.reset(token)
+
+
+def remat_call(fn: Callable, *args):
+    """`fn(*args)`, recomputed in the backward pass instead of keeping
+    its activations (non-reentrant `torch.utils.checkpoint`, the global
+    RNG states preserved)."""
+    from torch.utils.checkpoint import checkpoint
+
+    generator = _DROPOUT_GENERATOR.get()
+    state = None if generator is None else generator.get_state()
+    return checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=True,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            _recompute(generator, state)))
+
+
+def remat_active(module: nn.Module) -> bool:
+    """Whether `module` (with a `remat` attribute) recomputes: remat set,
+    train mode and autograd recording."""
+    return module.remat and module.training and torch.is_grad_enabled()
 
 
 @contextlib.contextmanager
@@ -110,6 +161,8 @@ class BatchNorm(nn.Module):
     @torch.no_grad()
     def update_running_stats(self, mean: torch.Tensor,
                              var: torch.Tensor) -> None:
+        if _RECOMPUTING[0]:  # `remat_call`'s backward: updated once
+            return
         self.running_mean.mul_(BN_MOMENTUM).add_(
             mean.detach().to(self.running_mean.dtype) * (1.0 - BN_MOMENTUM))
         self.running_var.mul_(BN_MOMENTUM).add_(

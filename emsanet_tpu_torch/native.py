@@ -1,12 +1,14 @@
 """ctypes bindings of the port's native host library.
 
 `csrc/host/emsanet_native.cpp`, a copy of the JAX package's host library
-plus the PNG reader's row unfiltering, is compiled at first use with the
+plus the PNG reader's row unfiltering and the baseline JPEG decoder
+(`csrc/host/jpeg_baseline.h`), is compiled at first use with the
 JAX package's flags (`g++ -O3 -march=native -ffast-math -fPIC`, linked
 without `-ffast-math`: at link time it would pull in `crtfastmath.o`,
 which sets FTZ/DAZ for the whole process) into
 `build/host/libemsanet_native-<hash>.so` inside the checkout. The hash
-covers the source, the flags and this machine's CPU, so an edited source,
+covers the source and the headers beside it, the flags and this
+machine's CPU, so an edited source,
 or a checkout copied to another machine, is rebuilt. There is no switch
 and no numpy fallback: a failed build raises with the compiler's
 message. Each entry point takes and returns numpy arrays; the numpy
@@ -49,8 +51,11 @@ def _cpu_signature() -> bytes:
 
 
 def library_path() -> Path:
+    headers = b"".join(p.read_bytes()
+                       for p in sorted(SOURCE.parent.glob("*.h")))
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(COMPILE_FLAGS + LINK_FLAGS).encode()
+        SOURCE.read_bytes() + headers
+        + " ".join(COMPILE_FLAGS + LINK_FLAGS).encode()
         + _cpu_signature()).hexdigest()[:16]
     return BUILD_DIR / f"libemsanet_native-{digest}.so"
 
@@ -107,11 +112,13 @@ def get_lib() -> ctypes.CDLL:
             "normalize_rgb_u8": [u8p, c_i64, f32p, f32p, f32p],
             "hsv_jitter_u8": [u8p, c_i64, c_f, c_f, c_f, u8p],
             "png_unfilter": [u8p, c_i64, c_i64, c_int, u8p],
+            "jpeg_decode": [u8p, c_i64, c_int, c_int, c_int, u8p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = c_int if name == "png_unfilter" else None
+            fn.restype = (c_int if name in ("png_unfilter", "jpeg_decode")
+                          else None)
         _lib = lib
         return lib
 
@@ -225,3 +232,25 @@ def png_unfilter(data, height: int, stride: int, bpp: int) -> np.ndarray:
         raise ValueError(f"unknown PNG filter type "
                          f"{raw[(bad - 1) * (stride + 1)]} in row {bad - 1}")
     return out
+
+
+JPEG_ERRORS = {1: "truncated data", 2: "a bad or missing marker",
+               3: "an unsupported coding", 4: "a bad Huffman code",
+               5: "a bad table", 6: "no frame or scan", 7: "a bad scan header",
+               8: "a frame unlike its header"}
+
+
+def jpeg_decode(blob: bytes, width: int, height: int,
+                channels: int) -> np.ndarray:
+    """The pixels of a baseline JPEG file whose frame header gives
+    `width`, `height` and `channels` (1 or 3): (h, w) or (h, w, 3)
+    uint8, as PIL decodes them. Raises ValueError on a malformed
+    stream."""
+    lib = get_lib()
+    raw = np.frombuffer(blob, np.uint8)
+    out = np.empty((height, width, channels), np.uint8)
+    err = lib.jpeg_decode(_ptr(raw, ctypes.c_uint8), raw.size, width,
+                          height, channels, _ptr(out, ctypes.c_uint8))
+    if err:
+        raise ValueError(f"JPEG data: {JPEG_ERRORS.get(err, err)}")
+    return out[..., 0] if channels == 1 else out

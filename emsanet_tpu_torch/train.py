@@ -45,13 +45,21 @@ checkpoint or a JAX package checkpoint through the transfer rules of
 and ground truth into `examples/epoch_XXXX/` (or
 `--visualization-output-path`), as `main.py` does.
 
-Flags take `emsanet_tpu/utils/cli.py`'s names, the model group's whole
+Flags take `emsanet_tpu/utils/cli.py`'s names, every one of them
 (modalities, backbones and blocks, activation, normalizations, context,
 every decoder's type, blocks, widths, fusion and upsampling, the
-instance head, the deprecated aliases); `--fused-inference` sends
-validation through the kernels, as there. Refused, with an error: wandb
-logging. It runs on the card unless `--device cpu` is given, and raises
-without one.
+instance head, the deprecated aliases, the run's bookkeeping);
+`--fused-inference` sends validation through the kernels, as there.
+`--config FILE` makes a JSON file's values (configs/*.json) the
+defaults that explicit flags override; `resume <run_dir> [flags]`
+replays the run's `argsv.txt` with its `checkpoints/ckpt_resume.pt`.
+`--remat` recomputes each encoder stage and decoder module in the
+backward pass (`torch.utils.checkpoint`; the BatchNorms' running
+statistics update once). `--hostname` and `--notes` go into args.json;
+`--debug` and `--disable-progress-bars` are recorded and change
+nothing (the trainer prints one line per epoch). Refused, with an
+error: wandb logging. It runs on the card unless `--device cpu` is
+given, and raises without one.
 
 Data parallel (`main.py:166-223`, `parallel/mesh.py`): `--n-devices N`
 spawns N ranks, one card each over NCCL (`--device cpu`: N CPU ranks
@@ -80,6 +88,7 @@ import dataclasses
 import datetime
 import json
 import os
+import socket
 import sys
 import time
 import traceback
@@ -144,6 +153,7 @@ from emsanet_tpu_torch.weights import (
 )
 
 EVAL_KEYS = ("rgb", "depth", "instance_foreground")  # the eval step's input
+KNOWN_LR_SCHEDULERS = ("onecycle",)
 
 
 def _subset_train(value: str):
@@ -154,9 +164,20 @@ def _subset_train(value: str):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--config", default=None,
+                   help="JSON config file (configs/*.json); explicit flags "
+                   "override its values")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--results-basepath", default="./results")
+    p.add_argument("--debug", action="store_true",
+                   help="recorded into args.json; changes nothing else")
+    p.add_argument("--hostname", default=socket.gethostname(),
+                   help="recorded into args.json")
+    p.add_argument("--notes", default="", help="recorded into args.json")
+    p.add_argument("--disable-progress-bars", action="store_true",
+                   help="recorded into args.json (the trainer prints one "
+                   "line per epoch, and no progress bars)")
     p.add_argument("--skip-sanity-check", action="store_true")
     p.add_argument("--validation-only", action="store_true")
     p.add_argument("--visualize-validation", action="store_true")
@@ -165,6 +186,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "the run directory's examples/)")
     p.add_argument("--wandb-mode", default="disabled",
                    choices=("online", "offline", "disabled"))
+    p.add_argument("--wandb-project", default="EMSANet-TPU")
+    p.add_argument("--wandb-name", default=None,
+                   help="[DEPRECATED] use --wandb-project")
     _add_model_flags(p)
     p.add_argument("--mixed-precision", action="store_true")
     p.add_argument("--fused-training", action="store_true")
@@ -181,6 +205,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", default="sgd",
                    choices=("sgd", "adam", "adamw", "radam"))
     p.add_argument("--learning-rate", type=float, default=0.01)
+    p.add_argument("--learning-rate-scheduler", default="onecycle",
+                   choices=KNOWN_LR_SCHEDULERS)
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--weight-decay", type=float, default=1e-4)
     p.add_argument("--tasks-weighting", nargs="+", type=float, default=None)
@@ -193,11 +219,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--semantic-loss-label-smoothing", type=float,
                    default=0.0)
     p.add_argument("--scene-loss-label-smoothing", type=float, default=0.0)
+    p.add_argument("--label-smoothing", type=float, default=None,
+                   help="[DEPRECATED] sets both per-task smoothings")
     weightings = ("median-frequency", "logarithmic", "linear", "none")
     p.add_argument("--semantic-class-weighting", default="median-frequency",
                    choices=weightings)
+    p.add_argument("--semantic-class-weighting-logarithmic-c", type=float,
+                   default=1.02)
     p.add_argument("--class-weighting", default=None, choices=weightings,
                    help="alias of --semantic-class-weighting; wins if given")
+    p.add_argument("--class-weighting-c", type=float, default=None,
+                   help="[DEPRECATED] --semantic-class-weighting-"
+                   "logarithmic-c; wins if given")
     p.add_argument("--dataset", default="nyuv2")
     p.add_argument("--dataset-path", default=None)
     p.add_argument("--split", default="train")
@@ -220,6 +253,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--validation-scannet-subsample", type=int, default=100,
                    choices=(50, 100, 200, 500))
     p.add_argument("--hypersim-subsample", type=int, default=1)
+    p.add_argument("--hypersim-use-old-depth-stats", action="store_true",
+                   help="recorded; warns (the prepared meta.json holds the "
+                   "depth statistics)")
+    p.add_argument("--sunrgbd-depth-do-not-force-mm", action="store_true")
+    p.add_argument("--sunrgbd-instances-version", default="panopticndt",
+                   choices=("emsanet", "panopticndt", "anyold"))
     p.add_argument("--validation-split", default="valid")
     p.add_argument("--validation-input-height", type=int, default=None)
     p.add_argument("--validation-input-width", type=int, default=None)
@@ -245,8 +284,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _add_model_flags(p: argparse.ArgumentParser) -> None:
-    """The model group of `emsanet_tpu/utils/cli.py:70-230` (without its
-    TPU-only `--remat`)."""
+    """The model group of `emsanet_tpu/utils/cli.py:70-230`."""
     p.add_argument("--tasks", nargs="+", default=("semantic",),
                    choices=KNOWN_TASKS)
     p.add_argument("--enable-panoptic", action="store_true")
@@ -288,6 +326,10 @@ def _add_model_flags(p: argparse.ArgumentParser) -> None:
                    type=int, default=(4, 8, 16))
     p.add_argument("--compute-dtype", default="float32",
                    choices=("float32", "bfloat16"))
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each encoder stage and decoder module "
+                   "in the backward pass (torch.utils.checkpoint): less "
+                   "activation memory for more compute")
     for task in DENSE_TASKS:
         p.add_argument(f"--{task}-decoder", default="emsanet",
                        choices=KNOWN_DECODERS)
@@ -369,11 +411,46 @@ def model_config_from_args(a: argparse.Namespace) -> ModelConfig:
                           for k, v in kw.items()})
 
 
+def resolve_argv(argv: Sequence[str]) -> List[str]:
+    """`resume <run_dir> [flags]` -> the run's recorded `argsv.txt`, then
+    `--resume-ckpt-filepath <run_dir>/checkpoints/ckpt_resume.pt`, then
+    `flags` (`emsanet_tpu/utils/cli.py:437-442`); any other argv as it
+    is."""
+    argv = list(argv)
+    if argv[:1] != ["resume"]:
+        return argv
+    if len(argv) < 2:
+        raise SystemExit("usage: resume <run_dir> [flags]")
+    run_dir = argv[1]
+    with open(os.path.join(run_dir, "argsv.txt")) as fh:
+        recorded = fh.read().split()
+    ckpt = os.path.join(run_dir, "checkpoints", "ckpt_resume.pt")
+    return recorded + ["--resume-ckpt-filepath", ckpt] + argv[2:]
+
+
+def parse_namespace(argv: Optional[Sequence[str]] = None
+                    ) -> Tuple[argparse.Namespace, List[str]]:
+    """(the flags, the argv parsed): `resume` resolved, and the values of
+    a `--config` file made the parser's defaults, so that explicit flags
+    override them; the file's keys that name no flag are dropped, as in
+    `emsanet_tpu/utils/cli.py:445-458`."""
+    argv = resolve_argv(sys.argv[1:] if argv is None else argv)
+    parser = build_parser()
+    if "--config" in argv:
+        with open(argv[argv.index("--config") + 1]) as fh:
+            file_cfg = json.load(fh)
+        known = {a.dest for a in parser._actions}
+        parser.set_defaults(**{
+            k: tuple(v) if isinstance(v, list) else v
+            for section in ("model", "data", "train")
+            for k, v in file_cfg.get(section, {}).items() if k in known})
+    return parser.parse_args(argv), argv
+
+
 def parse_args(argv: Optional[Sequence[str]] = None
                ) -> Tuple[EMSANetConfig, str, List[str]]:
     """(validated configuration, device name, the argv parsed)."""
-    argv = list(sys.argv[1:] if argv is None else argv)
-    a = build_parser().parse_args(argv)
+    a, argv = parse_namespace(argv)
     return config_from_args(a), a.device, argv
 
 
@@ -405,19 +482,32 @@ def config_from_args(a: argparse.Namespace) -> EMSANetConfig:
         validation_input_height=a.validation_input_height,
         validation_input_width=a.validation_input_width,
         class_weighting=a.class_weighting or a.semantic_class_weighting,
+        class_weighting_c=(
+            a.class_weighting_c if a.class_weighting_c is not None
+            else a.semantic_class_weighting_logarithmic_c),
+        hypersim_use_old_depth_stats=a.hypersim_use_old_depth_stats,
+        sunrgbd_depth_do_not_force_mm=a.sunrgbd_depth_do_not_force_mm,
+        sunrgbd_instances_version=a.sunrgbd_instances_version,
         synthetic_n_samples=a.synthetic_n_samples,
     )
+    smoothing = a.label_smoothing  # the deprecated alias sets both
     train = TrainConfig(
         n_epochs=a.n_epochs, optimizer=a.optimizer,
-        learning_rate=a.learning_rate, momentum=a.momentum,
+        learning_rate=a.learning_rate,
+        learning_rate_scheduler=a.learning_rate_scheduler,
+        momentum=a.momentum,
         weight_decay=a.weight_decay,
         tasks_weighting=(tuple(a.tasks_weighting) if a.tasks_weighting
                          else None),
         instance_weighting=tuple(a.instance_weighting),
         instance_center_loss=a.instance_center_loss,
         orientation_kappa=a.orientation_kappa, normal_loss=a.normal_loss,
-        semantic_loss_label_smoothing=a.semantic_loss_label_smoothing,
-        scene_loss_label_smoothing=a.scene_loss_label_smoothing,
+        semantic_loss_label_smoothing=(
+            a.semantic_loss_label_smoothing if smoothing is None
+            else smoothing),
+        scene_loss_label_smoothing=(
+            a.scene_loss_label_smoothing if smoothing is None
+            else smoothing),
         validation_skip=a.validation_skip,
         validation_force_interval=a.validation_force_interval,
         checkpointing_metrics=tuple(a.checkpointing_metrics),
@@ -434,6 +524,8 @@ def config_from_args(a: argparse.Namespace) -> EMSANetConfig:
         visualization_output_path=a.visualization_output_path,
         results_basepath=a.results_basepath,
         seed=a.seed, n_devices=a.n_devices, mixed_precision=a.mixed_precision,
+        hostname=a.hostname, notes=a.notes,
+        disable_progress_bars=a.disable_progress_bars, debug=a.debug,
     )
     return validate_train_for_port(
         EMSANetConfig(model=model, data=data, train=train))
@@ -765,8 +857,7 @@ def train_rank(mesh: Mesh, cfg: EMSANetConfig, argv: Sequence[str]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    a = build_parser().parse_args(argv)
+    a, argv = parse_namespace(argv)
     cfg = config_from_args(a)
     if a.distributed:
         resolve_device(a.device)

@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_tmp_files import remove_large_files
 from flax import serialization
 from test_torch_port_model import _random_variables
 
@@ -72,6 +73,14 @@ ATOL, RTOL = 1e-4, 1e-3
 H, W = 96, 128
 TASKS = ("semantic", "instance", "orientation", "scene")
 STAGES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
+
+
+@pytest.fixture(autouse=True)
+def _remove_checkpoints(tmp_path):
+    """The checkpoints a test writes go once it is done."""
+    yield
+    remove_large_files(tmp_path)
+
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -252,7 +261,8 @@ def jax_ckpt(tmp_path_factory):
     state = create_train_state(jmodel, variables, get_optimizer(cfg.train))
     path = str(tmp_path_factory.mktemp("jax_ckpt") / "ckpt.msgpack")
     jax_save(path, state, 3, logs={"valid_miou": 0.5}, extra={"a": [1, 2]})
-    return path, jmodel, variables
+    yield path, jmodel, variables
+    remove_large_files(os.path.dirname(path))
 
 
 def test_jax_checkpoint_forward_matches_jax(jax_ckpt, inputs):

@@ -18,6 +18,7 @@ import ast
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch_tmp_files import remove_large_files
 
 from emsanet_tpu_torch import export_model
 from emsanet_tpu_torch import train as trainer
@@ -40,6 +41,13 @@ FLAGS = ["--device", "cpu", "--dataset", "synthetic", "--tasks", "semantic",
     arg for key, value in NARROW.items() for arg in (
         "--" + key.replace("_", "-"),
         *(str(v) for v in (value if isinstance(value, tuple) else (value,))))]
+
+
+@pytest.fixture(autouse=True)
+def _remove_checkpoints(tmp_path):
+    """The exported program (~200 MB) goes once its test is done."""
+    yield
+    remove_large_files(tmp_path)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -35,6 +35,7 @@ import torch
 from PIL import Image
 from test_torch_port_model import _random_variables
 from torch_inference_cases import TILE_NAMES, panel_tiles
+from torch_tmp_files import remove_large_files
 
 from emsanet_tpu import DataConfig as JaxDataConfig
 from emsanet_tpu import native as jax_native
@@ -107,8 +108,16 @@ def files(tmp_path_factory):
                   rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
         write_png(str(samples / f"{name}_depth.png"),
                   rng.randint(0, 12000, (h, w)).astype(np.uint16))
-    return {"argv": argv + ["--weights-filepath", ckpt],
-            "samples": str(samples), "dataset": dataset, "ckpt": ckpt}
+    yield {"argv": argv + ["--weights-filepath", ckpt],
+           "samples": str(samples), "dataset": dataset, "ckpt": ckpt}
+    remove_large_files(tmp)
+
+
+@pytest.fixture(autouse=True)
+def _remove_checkpoints(tmp_path):
+    """The checkpoints a test's run directory holds go once it is done."""
+    yield
+    remove_large_files(tmp_path)
 
 
 def test_prepare_raw_depth_clips_before_scaling():

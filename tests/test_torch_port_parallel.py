@@ -38,6 +38,7 @@ import torch
 import torch_parallel_cases as cases
 from test_torch_port_model import _random_variables
 from torch_port_plain import plain_host_library
+from torch_tmp_files import remove_large_files
 
 from emsanet_tpu import DataConfig as JaxDataConfig
 from emsanet_tpu import EMSANetConfig as JaxEMSANetConfig
@@ -136,20 +137,28 @@ def results(tmp_path_factory):
         batch = next(iter(loader.batches(0)))
     cw = ds.semantic_compute_class_weights()
     entry_dir = tmp_path_factory.mktemp("runs")
-    with ThreadPoolExecutor(3) as pool:
-        entry = pool.submit(_train_entry_two_cpu_ranks, entry_dir)
-        ranks = pool.submit(mesh_ops.launch, cases.rank_cases, 2, "cpu",
-                            state, batch, cw, cases.fresh_ckpt_dir(),
-                            threads=1, timeout=SPAWN_TIMEOUT)
-        emulated = pool.submit(mesh_ops.launch, cases.emulate_f64, 1, "cpu",
-                               state, batch, cw, threads=1,
-                               timeout=SPAWN_TIMEOUT)
-        jax_step = _jax_parallel_step(variables, batch, cw)
-        one = trainer.setup(one_process_config(cases.valid_cfg(), 2), "cpu")
-        one_logs = trainer.run_validation(one, 0)
-        return {"ranks": ranks.result(), "emulated": emulated.result()[0],
-                "state": state, "jax": jax_step, "one_valid_logs": one_logs,
-                "entry": (entry.result(), entry_dir)}
+    ckpt_dir = cases.fresh_ckpt_dir(tmp_path_factory)
+    try:
+        with ThreadPoolExecutor(3) as pool:
+            entry = pool.submit(_train_entry_two_cpu_ranks, entry_dir)
+            ranks = pool.submit(mesh_ops.launch, cases.rank_cases, 2, "cpu",
+                                state, batch, cw, ckpt_dir,
+                                threads=1, timeout=SPAWN_TIMEOUT)
+            emulated = pool.submit(mesh_ops.launch, cases.emulate_f64, 1,
+                                   "cpu", state, batch, cw, threads=1,
+                                   timeout=SPAWN_TIMEOUT)
+            jax_step = _jax_parallel_step(variables, batch, cw)
+            one = trainer.setup(one_process_config(cases.valid_cfg(), 2),
+                                "cpu")
+            one_logs = trainer.run_validation(one, 0)
+            out = {"ranks": ranks.result(),
+                   "emulated": emulated.result()[0], "state": state,
+                   "jax": jax_step, "one_valid_logs": one_logs,
+                   "entry": (entry.result(), entry_dir)}
+    finally:
+        remove_large_files(ckpt_dir)  # the ranks have read it back
+    yield out
+    remove_large_files(entry_dir)
 
 
 def _rel_norm(got, want):

@@ -3,10 +3,12 @@ against PIL, on the CPU.
 
 `read_png` must return what `np.asarray(PIL.Image.open(path))` returns,
 bit for bit, dtype and shape included: gray at 1, 2, 4, 8 and 16 bits,
-gray + alpha, RGB and RGBA at 8 bits and palette images at 1, 2, 4 and
-8 bits, each written with every PNG row filter (0-4 and a per-row mix),
-at an odd width (sub-byte rows end mid-byte), and files PIL writes
-itself. JPEG, interlaced and 16-bit colour files raise `NotPortedError`.
+gray + alpha, RGB and RGBA at 8 and 16 bits and palette images at 1,
+2, 4 and 8 bits, each written with every PNG row filter (0-4 and a
+per-row mix), at an odd width (sub-byte rows end mid-byte), interlaced
+(Adam7) files of every mode at sizes whose passes are empty or ragged,
+and files PIL writes itself. A baseline JPEG file is decoded as PIL
+decodes it; progressive and CMYK JPEG files raise `NotPortedError`.
 """
 
 import struct
@@ -24,7 +26,8 @@ FILTERS = [0, 1, 2, 3, 4, "adaptive"]
 # name: (color type, bit depth, channels)
 MODES = {"gray1": (0, 1, 1), "gray2": (0, 2, 1), "gray4": (0, 4, 1),
          "gray8": (0, 8, 1), "gray16": (0, 16, 1), "gray+alpha": (4, 8, 2),
-         "rgb": (2, 8, 3), "rgba": (6, 8, 4), "palette1": (3, 1, 1),
+         "rgb": (2, 8, 3), "rgba": (6, 8, 4), "gray+alpha16": (4, 16, 2),
+         "rgb16": (2, 16, 3), "rgba16": (6, 16, 4), "palette1": (3, 1, 1),
          "palette2": (3, 2, 1), "palette4": (3, 4, 1),
          "palette8": (3, 8, 1)}
 
@@ -118,25 +121,73 @@ def test_transparency_chunk_is_ignored_as_pil_does(tmp_path):
     assert np.array_equal(png.read_png(path), want)
 
 
+def _adam7_png(raw: np.ndarray, width: int, depth: int, color_type: int,
+               palette=None) -> bytes:
+    """An interlaced PNG file of (h, stride) packed rows: each Adam7
+    pass's sub-image packed, filtered (per-row mix) and concatenated."""
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color_type]
+    bits = channels * depth
+    height = raw.shape[0]
+    if depth >= 8:
+        samples = raw.reshape(height, width, bits // 8)
+    else:
+        samples = np.unpackbits(raw, axis=1)[:, :width * depth].reshape(
+            height, width, depth)
+    stream = b""
+    for x0, y0, dx, dy in png._ADAM7:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        rows = sub.reshape(sub.shape[0], -1)
+        if depth < 8:
+            rows = np.packbits(rows, axis=1)
+        stream += png.filter_rows(rows, max(bits // 8, 1), "adaptive")
+    header = struct.pack(">IIBBBBB", width, height, depth, color_type, 0,
+                         0, 1)
+    return (png.SIGNATURE + png._chunk(b"IHDR", header)
+            + (png._chunk(b"PLTE", palette) if palette else b"")
+            + png._chunk(b"IDAT", zlib.compress(stream))
+            + png._chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("size", [(1, 1), (3, 5), (H, W), (17, 9)],
+                         ids=["1x1", "3x5", "7x13", "17x9"])
+def test_interlaced_matches_pil(tmp_path, mode, size):
+    color_type, depth, channels = MODES[mode]
+    h, w = size
+    rng = np.random.default_rng(7)
+    stride = (w * channels * depth + 7) // 8
+    raw = rng.integers(0, 256, (h, stride), dtype=np.uint8)
+    palette = (bytes(i % 256 for i in range(3 * (1 << depth)))
+               if color_type == 3 else None)
+    path = tmp_path / "laced.png"
+    path.write_bytes(_adam7_png(raw, w, depth, color_type, palette))
+    with Image.open(path) as img:
+        want = np.asarray(img)
+    got = png.read_png(str(path))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got, want)
+
+
 def test_unported_files_raise(tmp_path):
+    """Progressive and CMYK JPEG files raise naming the file; a baseline
+    JPEG file given to the PNG reader is decoded as PIL decodes it."""
+    rgb = np.random.default_rng(3).integers(0, 256, (9, 11, 3),
+                                            dtype=np.uint8)
     jpg = str(tmp_path / "rgb.jpg")
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(jpg)
-    with pytest.raises(NotPortedError, match="JPEG.*rgb.jpg"):
-        png.read_png(jpg)
-    laced = str(tmp_path / "laced.png")
-    blob = png.encode_png(np.zeros((H, W), np.uint8), W, 8, 0)
-    header = blob[16:28] + b"\x01"  # IHDR with the interlace byte set
-    with open(laced, "wb") as fh:
-        fh.write(blob[:8] + blob[8:16] + header + struct.pack(
-            ">I", zlib.crc32(blob[12:28] + b"\x01") & 0xFFFFFFFF)
-            + blob[33:])
-    with pytest.raises(NotPortedError, match="interlaced.*laced.png"):
-        png.read_png(laced)
-    rgb16 = str(tmp_path / "rgb16.png")
-    with open(rgb16, "wb") as fh:
-        fh.write(png.encode_png(np.zeros((H, 6 * W), np.uint8), W, 16, 2))
-    with pytest.raises(NotPortedError, match="color type 2 at 16"):
-        png.read_png(rgb16)
+    Image.fromarray(rgb).save(jpg)
+    with Image.open(jpg) as img:
+        assert np.array_equal(png.read_png(jpg), np.asarray(img))
+    progressive = str(tmp_path / "progressive.jpg")
+    Image.fromarray(rgb).save(progressive, progressive=True)
+    with pytest.raises(NotPortedError,
+                       match="progressive JPEG.*progressive.jpg"):
+        png.read_png(progressive)
+    cmyk = str(tmp_path / "cmyk.jpg")
+    Image.fromarray(rgb).convert("CMYK").save(cmyk)
+    with pytest.raises(NotPortedError, match="CMYK JPEG.*cmyk.jpg"):
+        png.read_png(cmyk)
     text = tmp_path / "x.png"
     text.write_text("not a png")
     with pytest.raises(ValueError, match="not a PNG"):

@@ -70,12 +70,21 @@ from emsanet_tpu_torch.training.step import (
 )
 from emsanet_tpu_torch.weights import flax_to_state_dict, load_flax_variables
 from torch_port_plain import plain_host_library
+from torch_tmp_files import remove_large_files
 
 H = W = 64
 B = 4
 TASKS = ("semantic", "instance", "orientation", "scene")
 NO_DROPOUT = dict(dropout_p=0.0, semantic_decoder_block_dropout_p=0.0,
                   instance_decoder_block_dropout_p=0.0)
+
+
+@pytest.fixture(autouse=True)
+def _remove_checkpoints(tmp_path):
+    """The checkpoints a test writes go once it is done."""
+    yield
+    remove_large_files(tmp_path)
+
 
 
 def _model_kwargs(dtype="float32", **extra):

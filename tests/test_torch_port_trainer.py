@@ -15,6 +15,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch_tmp_files import remove_large_files
 
 from emsanet_tpu_torch import config as pc
 from emsanet_tpu_torch import train as trainer
@@ -29,6 +30,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 RUN4 = os.path.join(HERE, "..", "results_samples", "train_run_r5",
                     "run4_bce")
 TASKS = ("semantic", "instance", "orientation", "scene")
+
+
+@pytest.fixture(autouse=True)
+def _remove_checkpoints(tmp_path):
+    """The checkpoints a test writes go once it is done."""
+    yield
+    remove_large_files(tmp_path)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -182,6 +190,22 @@ def test_checkpoint_round_trip_is_bit_exact(tmp_path):
         run.optimizer.state_dict()["param_groups"]
 
 
+def test_checkpoint_file_holds_only_its_tensors(tmp_path):
+    """The file's bytes are its tensors' bytes plus a small overhead: no
+    tensor drags a larger storage (a view of a stacked copy or of a
+    shared buffer) into the file."""
+    run = trainer.setup(_cfg(), "cpu")
+    _one_step(run)
+    path = tmp_path / "ckpt_resume.pt"
+    save_checkpoint(str(path), run.model, run.optimizer, 0)
+    tensors = list(run.model.state_dict().values()) + [
+        v for st in run.optimizer.state_dict()["state"].values()
+        for v in st.values() if torch.is_tensor(v)]
+    nbytes = sum(t.nelement() * t.element_size() for t in tensors)
+    overhead = os.path.getsize(path) - nbytes
+    assert 0 <= overhead < 1024 * len(tensors), (overhead, nbytes)
+
+
 def test_sanity_check_leaves_model_and_optimizer_unchanged():
     run = trainer.setup(_cfg(), "cpu")
     _one_step(run)
@@ -213,6 +237,7 @@ def test_resume_equals_a_straight_run(tmp_path):
     straight, run_dir = _train(_cfg(**kw), tmp_path, "straight")
     want_logs = trainer.train(straight, run_dir)
     assert os.path.exists(os.path.join(run_dir, "finished"))
+    remove_large_files(run_dir)  # only the broken run's are read
 
     broken, run_dir = _train(_cfg(**kw), tmp_path, "broken")
     step = broken.train_step

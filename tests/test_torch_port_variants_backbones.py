@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_tmp_files import remove_large_files
 
 from emsanet_tpu import DataConfig, EMSANetConfig
 from emsanet_tpu import ModelConfig as JaxModelConfig
@@ -21,6 +22,13 @@ from emsanet_tpu_torch.datasets.metadata import get_dataset_config
 from emsanet_tpu_torch.models.backbone import get_backbone_spec
 from emsanet_tpu_torch.models.emsanet import EMSANet
 from emsanet_tpu_torch.weights import load_flax_variables
+
+
+@pytest.fixture(autouse=True)
+def _remove_checkpoints(tmp_path):
+    """The checkpoints a test writes go once it is done."""
+    yield
+    remove_large_files(tmp_path)
 
 
 NAMES = [f"{b}{se}{d}" for b in ("resnet18", "resnet34", "resnet50",

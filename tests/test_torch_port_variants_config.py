@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch_tmp_files import remove_large_files
 
 from emsanet_tpu import losses as jax_losses
 from emsanet_tpu import task_helper as jax_th
@@ -64,6 +65,14 @@ SETTINGS = (
     + [{"fused_inference": f} for f in (True, False)]
     + [{"train_polyphase_upsampling": True}]
 )
+
+
+@pytest.fixture(autouse=True)
+def _remove_checkpoints(tmp_path):
+    """The checkpoints a test writes go once it is done."""
+    yield
+    remove_large_files(tmp_path)
+
 
 
 @pytest.mark.parametrize("setting", SETTINGS, ids=[

@@ -11,7 +11,6 @@ versions), global batch 8 (4 a rank, as the one-device step test's b4).
 from __future__ import annotations
 
 import os
-import tempfile
 from typing import Any, Dict
 
 import numpy as np
@@ -179,5 +178,7 @@ def valid_cfg(n_devices: int = 2) -> pc.EMSANetConfig:
     return cfg
 
 
-def fresh_ckpt_dir() -> str:
-    return tempfile.mkdtemp(prefix="emsanet_parallel_test_")
+def fresh_ckpt_dir(tmp_path_factory) -> str:
+    """A new folder for the ranks' checkpoint, under pytest's temporary
+    folder (the caller removes the checkpoint once it has read it)."""
+    return str(tmp_path_factory.mktemp("parallel_ckpt"))
