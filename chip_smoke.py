@@ -158,14 +158,22 @@ Phases (any failure exits non-zero and prints no result):
      is validated at full resolution on the card and the CPU: eval
      outputs and metrics within phase 8's limits.
  9b. prepare (`[prepare]`, `emsanet_tpu_torch/prepare_dataset.py`, on
-     the host, without PIL): the port's JPEG decoder must equal the
-     committed pixels (PIL's decode, as PNG) of every
-     `tests/data/jpeg/*.jpg`; `prepare_cityscapes` on a 1024x2048 raw
-     set the port writes itself (2 train, 1 val frames) must give the
-     documented rgb, semantic, instance and depth maps; the synthetic
-     set prepared at 640x480 is validated on the card through
-     `train.main --validation-only` (the flagship R34 at full width,
-     bf16, b2, decode-planes by 'auto'), kernels 1-8 launched.
+     the host, without PIL or h5py): the port's JPEG decoder must equal
+     the committed pixels (PIL's decode, as PNG) of every
+     `tests/data/jpeg/*.jpg` (baseline, progressive, CMYK, YCCK);
+     `prepare_cityscapes` on a 1024x2048 raw set the port writes itself
+     (2 train, 1 val frames) must give the documented rgb, semantic,
+     instance and depth maps; the synthetic set prepared at 640x480 is
+     validated on the card through `train.main --validation-only` (the
+     flagship R34 at full width, bf16, b2, decode-planes by 'auto'),
+     kernels 1-8 launched; the committed HDF5 sets (`tests/data/hdf5/`:
+     a NYUv2-layout MATLAB v7.3 .mat of 3 frames at 640x480 with
+     `splits.mat` and the class mapping written by scipy.io.savemat, and
+     a Hypersim raw tree with a progressive tonemap.jpg) are prepared
+     with `h5py` and `PIL` blocked and must give the digests of
+     `tests/data/hdf5/expected.json` (the tool's trees); the port's HDF5
+     read ms per NYUv2 frame; the prepared NYUv2 set is validated as the
+     synthetic one, kernels 1-8 launched.
  9c. resume and config (`[resume]`, `[config]`): `train.main(["resume",
      <phase 9's run>, "--n-epochs", "3"])` trains and validates one more
      epoch in a new run directory (kernels 1-7, 9, 10 launched; epoch 2
@@ -2903,16 +2911,61 @@ def _cityscapes_raw(root, height, width, n_train, n_val):
     return written
 
 
+HDF5_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "hdf5")
+NYUV2_SPLITS = {"trainNdxs": (1,), "testNdxs": (2, 3)}  # the fixture's frames
+
+
+def nyuv2_tables(root):
+    """`splits.mat` and `classMapping40.mat` for the NYUv2 fixture, written
+    with scipy.io.savemat into `root`: (splits path, mapping path)."""
+    import numpy as np
+    from scipy import io as sio
+
+    splits = os.path.join(root, "splits.mat")
+    sio.savemat(splits, {k: np.array(v)[:, None]
+                         for k, v in NYUV2_SPLITS.items()})
+    mapping = os.path.join(root, "classMapping40.mat")
+    sio.savemat(mapping, {"mapClass": (np.arange(894) % 40 + 1)[None]})
+    return splits, mapping
+
+
+def tree_digests(root, read_array):
+    """{path in the prepared tree `root`: SHA-256} of each PNG file's
+    array as `read_array` decodes it (dtype, shape and bytes), of each
+    JSON file's value, and of every other file's bytes."""
+    import hashlib
+
+    import numpy as np
+
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            if name.endswith(".png"):
+                arr = np.ascontiguousarray(read_array(path))
+                data = f"{arr.dtype.str} {arr.shape} ".encode() + \
+                    arr.tobytes()
+            elif name.endswith(".json"):
+                with open(path) as fh:
+                    data = json.dumps(json.load(fh), sort_keys=True).encode()
+            else:
+                with open(path, "rb") as fh:
+                    data = fh.read()
+            out[os.path.relpath(path, root)] = hashlib.sha256(
+                data).hexdigest()
+    return dict(sorted(out.items()))
+
+
 def prepare_phase(torch, modules, tmp):
     """[prepare] (phase 9b): (a) the port's JPEG decoder equals the
     committed pixels of `tests/data/jpeg/*.jpg` (PIL's decode, as PNG);
     (b) `prepare_dataset.prepare_cityscapes` on a Cityscapes-layout raw
     set at 1024x2048 that the port writes itself, checked against the
     tool's documented mapping; (c) `prepare_synthetic` at 640x480, then
-    one validation of it on the card (`train.main --validation-only`,
-    the flagship R34 at full width, validation b2, decode-planes by
-    'auto') with the launch counters set to 0 just before: kernels 1-8
-    must launch."""
+    one validation of it on the card (`validate_prepared`); (d) the
+    HDF5 fixture sets (`prepare_hdf5_sets`); (e) one validation of the
+    prepared NYUv2 set on the card."""
     import numpy as np
 
     from emsanet_tpu_torch import prepare_dataset
@@ -2990,43 +3043,133 @@ def prepare_phase(torch, modules, tmp):
     t0 = time.perf_counter()
     prepare_dataset.prepare_synthetic(root, n_train, n_test, h, w)
     report["synthetic_prepare_s"] = time.perf_counter() - t0
-    argv = ["--dataset", "nyuv2", "--dataset-path", root, "--tasks",
-            "semantic", "instance", "orientation", "scene",
-            "--enable-panoptic", "--mixed-precision", "--fused-inference",
-            "--batch-size", "2", "--validation-batch-size", "2",
-            "--head-decode-fusion", "auto", "--n-workers", "4",
-            "--validation-only", "--skip-sanity-check",
-            "--results-basepath", os.path.join(tmp, "prepare_runs")]
-    reset_counts(modules)
-    t0 = time.perf_counter()
-    if trainer.main(argv) != 0:
-        raise AssertionError("[prepare] the validation did not end with 0")
-    torch.cuda.synchronize()
-    valid_s = time.perf_counter() - t0
-    launches = counts(modules)
-    missing = sorted(k for k, n in launches.items() if n <= 0)
-    if missing:
-        raise AssertionError(f"[prepare] the validation of the prepared "
-                             f"set did not launch {missing}")
-    (run_dir,) = os.listdir(os.path.join(tmp, "prepare_runs", "nyuv2"))
-    with open(os.path.join(tmp, "prepare_runs", "nyuv2", run_dir,
-                           "metrics.csv")) as fh:
-        header, row = [r.split(",") for r in fh.read().strip().splitlines()]
-    logs = dict(zip(header, row))
-    bad = [k for k, v in logs.items() if k.startswith("valid_")
-           and not math.isfinite(float(v))]
-    if bad:
-        raise AssertionError(f"[prepare] validation metrics not finite: "
-                             f"{bad}")
+    valid_s, launches, logs = validate_prepared(
+        torch, modules, trainer, root, os.path.join(tmp, "prepare_runs"),
+        "synthetic")
     log(f"[prepare] synthetic {w}x{h} ({n_train} train, {n_test} test) "
         f"prepared in {report['synthetic_prepare_s']:.1f} s; validation "
         f"of its test split on the card (flagship R34, bf16, b2, "
         f"decode-planes): {valid_s:.1f} s with setup; launches "
         f"{json.dumps(launches)}; valid_semantic_miou "
         f"{logs.get('valid_semantic_miou')}")
-    report.update(valid_s=valid_s, launches=launches,
-                  seconds=time.perf_counter() - t_phase)
+    report.update(valid_s=valid_s, launches=launches)
+
+    # (d) the HDF5 sets, with h5py and PIL absent
+    report["hdf5"] = prepare_hdf5_sets(tmp)
+    # (e) the prepared NYUv2 set, validated on the card
+    valid_s, launches, logs = validate_prepared(
+        torch, modules, trainer, os.path.join(tmp, "nyuv2"),
+        os.path.join(tmp, "prepare_runs_nyuv2"), "nyuv2")
+    log(f"[prepare] nyuv2 from the .mat: validation of its test split on "
+        f"the card (flagship R34, bf16, b2, decode-planes): {valid_s:.1f} "
+        f"s with setup; launches {json.dumps(launches)}; "
+        f"valid_semantic_miou {logs.get('valid_semantic_miou')}")
+    report["hdf5"].update(nyuv2_valid_s=valid_s, nyuv2_launches=launches)
+    report["seconds"] = time.perf_counter() - t_phase
     log(f"[prepare] phase {report['seconds']:.1f} s")
+    return report
+
+
+def validate_prepared(torch, modules, trainer, root, runs, what):
+    """One validation of the prepared set `root` on the card
+    (`train.main --validation-only`: the flagship R34 at full width,
+    bf16, validation b2, decode-planes by 'auto'), launch counters set to
+    0 just before: every kernel of KERNELS must launch and the metrics be
+    finite. Returns (seconds, launches, metrics.csv's row)."""
+    argv = ["--dataset", "nyuv2", "--dataset-path", root, "--tasks",
+            "semantic", "instance", "orientation", "scene",
+            "--enable-panoptic", "--mixed-precision", "--fused-inference",
+            "--batch-size", "2", "--validation-batch-size", "2",
+            "--head-decode-fusion", "auto", "--n-workers", "4",
+            "--validation-only", "--skip-sanity-check",
+            "--results-basepath", runs]
+    reset_counts(modules)
+    t0 = time.perf_counter()
+    if trainer.main(argv) != 0:
+        raise AssertionError(f"[prepare] the validation of the {what} set "
+                             "did not end with 0")
+    torch.cuda.synchronize()
+    valid_s = time.perf_counter() - t0
+    launches = counts(modules)
+    missing = sorted(k for k, n in launches.items() if n <= 0)
+    if missing:
+        raise AssertionError(f"[prepare] the validation of the prepared "
+                             f"{what} set did not launch {missing}")
+    (run_dir,) = os.listdir(os.path.join(runs, "nyuv2"))
+    with open(os.path.join(runs, "nyuv2", run_dir, "metrics.csv")) as fh:
+        header, row = [r.split(",") for r in fh.read().strip().splitlines()]
+    logs = dict(zip(header, row))
+    bad = [k for k, v in logs.items() if k.startswith("valid_")
+           and not math.isfinite(float(v))]
+    if bad:
+        raise AssertionError(f"[prepare] {what} validation metrics not "
+                             f"finite: {bad}")
+    return valid_s, launches, logs
+
+
+def prepare_hdf5_sets(tmp):
+    """[prepare] (d): the committed HDF5 fixture sets (`tests/data/hdf5/`:
+    a NYUv2-layout MATLAB v7.3 .mat, 3 frames at 640x480, and a Hypersim
+    raw tree with a progressive tonemap.jpg) prepared into tmp/{nyuv2,
+    hypersim} by the port with h5py and PIL absent (`splits.mat` and the
+    class mapping written by scipy.io.savemat); the digests of both trees
+    must equal `expected.json` (the tool's trees). Also the port's HDF5
+    read ms per NYUv2 frame (its five arrays, each frame's chunks read
+    and inflated once, a new file handle)."""
+    import numpy as np
+
+    from emsanet_tpu_torch import prepare_dataset
+    from emsanet_tpu_torch.datasets import hdf5
+    from emsanet_tpu_torch.datasets.png import read_png
+
+    with open(os.path.join(HDF5_FIXTURES, "expected.json")) as fh:
+        expected = json.load(fh)
+    mat = os.path.join(HDF5_FIXTURES, "nyuv2", "nyu_depth_v2_labeled.mat")
+    report = {}
+    saved = {m: sys.modules.pop(m, None) for m in ("h5py", "PIL")}
+    sys.modules.update(dict.fromkeys(saved))  # `import h5py` now fails
+    try:
+        splits, mapping = nyuv2_tables(tmp)
+        for name, call in (
+                ("nyuv2", lambda out: prepare_dataset.prepare_nyuv2(
+                    mat, splits, mapping, out)),
+                ("hypersim", lambda out: prepare_dataset.prepare_hypersim(
+                    os.path.join(HDF5_FIXTURES, "hypersim"), out))):
+            out = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            call(out)
+            report[f"{name}_prepare_s"] = time.perf_counter() - t0
+            got = tree_digests(out, read_png)
+            wrong = sorted(k for k in set(got) | set(expected[name])
+                           if got.get(k) != expected[name].get(k))
+            if wrong:
+                raise AssertionError(f"[prepare] {name} from HDF5: "
+                                     f"{len(wrong)} of {len(got)} files "
+                                     f"differ from expected.json: "
+                                     f"{wrong[:8]}")
+            report[f"{name}_files"] = len(got)
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    frame_ms = []
+    with hdf5.File(mat) as f:
+        arrays = [f[k] for k in ("images", "depths", "rawDepths", "labels",
+                                 "instances")]
+        for i in range(arrays[0].shape[0]):
+            t0 = time.perf_counter()
+            nbytes = sum(np.asarray(a[i]).nbytes for a in arrays)
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+    report.update(hdf5_frame_ms=frame_ms, hdf5_frame_bytes=nbytes)
+    log(f"[prepare] nyuv2 .mat (3 frames 640x480) and hypersim (2 frames "
+        f"256x192, progressive JPEG) prepared without h5py and PIL in "
+        f"{report['nyuv2_prepare_s']:.2f} / "
+        f"{report['hypersim_prepare_s']:.2f} s (host); "
+        f"{report['nyuv2_files']} + {report['hypersim_files']} files equal "
+        f"to expected.json; HDF5 read of one frame's five arrays "
+        f"({nbytes} bytes): {', '.join(f'{t:.2f}' for t in frame_ms)} ms")
     return report
 
 

@@ -1,23 +1,34 @@
-// Baseline JPEG decoding (ITU T.81 sequential DCT, Huffman, 8-bit),
-// included by emsanet_native.cpp; entry point `jpeg_decode` (plain C).
+// JPEG decoding (ITU T.81 sequential and progressive DCT, Huffman,
+// 8-bit), included by emsanet_native.cpp; entry point `jpeg_decode`
+// (plain C).
 //
 // It returns the pixels PIL gives for the same file: Pillow decodes with
 // libjpeg-turbo at its defaults, so each step is libjpeg-turbo's:
+//   - progressive scans (jdphuff.c): DC first and refinement scans, AC
+//     first scans with end-of-band runs, AC refinement scans with their
+//     correction bits; libjpeg-turbo smooths the blocks of a file whose
+//     scans leave coefficient bits unknown (jdcoefct.c smoothing_ok):
+//     such a file is refused with kSmoothing;
 //   - the `islow` integer IDCT (jidctint.c: 13-bit constants, 2 extra
 //     bits after the column pass, the post-IDCT range-limit table);
 //   - "fancy" chroma upsampling (jdsample.c): h2v1 and h2v2 triangle
 //     filters with their rounding biases, h1v2, box replication where
 //     a component is at most 2 samples wide or for other factors; the
 //     rows above the first and below the last real row repeat it;
-//   - YCbCr -> RGB by libjpeg's 16-bit fixed-point tables (jdcolor.c).
-// Handled: SOF0 and SOF1 at 8-bit precision, 1 or 3 components,
-// interleaved and single-component scans (several scans per frame),
-// any sampling factors, 8- and 16-bit quantization tables, restart
-// intervals, partial edge MCUs. The colour space of 3 components is
-// libjpeg's guess: JFIF -> YCbCr, Adobe transform 0 -> RGB, else the
-// component ids ('R','G','B' -> RGB). Progressive, lossless,
-// arithmetic-coded, 12-bit and CMYK files are refused by the caller
-// (`datasets/jpeg.py`) before they get here.
+//   - YCbCr -> RGB by libjpeg's 16-bit fixed-point tables (jdcolor.c),
+//     and YCCK -> CMYK (ycck_cmyk_convert) by the same tables.
+// Handled: SOF0, SOF1 and SOF2 at 8-bit precision, 1, 3 or 4
+// components, interleaved and single-component scans (several scans per
+// frame; a single-component scan covers the component's own blocks, not
+// the MCU-padded ones), any sampling factors, 8- and 16-bit quantization
+// tables, restart intervals, partial edge MCUs. The colour space is
+// libjpeg's guess: of 3 components JFIF -> YCbCr, Adobe transform 0 ->
+// RGB, else the component ids ('R','G','B' -> RGB); of 4 components
+// Adobe transform 0 or no Adobe marker -> CMYK, any other transform ->
+// YCCK. Four components are returned as PIL's mode CMYK gives them:
+// inverted (PIL's raw mode "CMYK;I"). Lossless, arithmetic-coded and
+// 12-bit files are refused by the caller (`datasets/jpeg.py`) before
+// they get here.
 
 #include <cstdint>
 #include <cstring>
@@ -34,6 +45,8 @@ enum Error {
   kBadTable = 5,
   kNoFrame = 6,
   kBadScan = 7,
+  kSizes = 8,      // the frame differs from the caller's sizes
+  kSmoothing = 9,  // libjpeg-turbo would smooth the blocks
 };
 
 static const int kNatural[64 + 16] = {  // zigzag index -> natural index
@@ -88,6 +101,9 @@ struct Component {
   int bw = 0, bh = 0;   // blocks per row and column (MCU-padded)
   int dw = 0, dh = 0;   // the downsampled size (libjpeg's)
   std::vector<int16_t> coef;  // (bh, bw, 64) natural order
+  // progressive: the lowest bit known of each coefficient (zigzag
+  // order), -1 where no scan has coded it (libjpeg's coef_bits)
+  int coef_bits[64];
 };
 
 struct BitReader {
@@ -191,6 +207,83 @@ static bool decode_block(BitReader* br, const Huffman* dc, const Huffman* ac,
       if (r != 15) break;
       k += 15;
     }
+  }
+  return true;
+}
+
+// ---- progressive scans (libjpeg-turbo jdphuff.c) --------------------------
+
+static bool decode_dc_first(BitReader* br, const Huffman* dc, int* pred,
+                            int16_t* blk, int al) {
+  const int s = decode_huffman(br, dc);
+  if (s < 0 || s > 16) return false;
+  *pred += s ? extend(br->get(s), s) : 0;
+  blk[0] = (int16_t)((unsigned)*pred << al);
+  return true;
+}
+
+// a correction bit of an already nonzero coefficient (jdphuff.c)
+static inline void refine(BitReader* br, int16_t* coef, int p1) {
+  if (br->get(1) && (*coef & p1) == 0) *coef += *coef >= 0 ? p1 : -p1;
+}
+
+static bool decode_ac_first(BitReader* br, const Huffman* ac, int ss, int se,
+                            int al, int* eobrun, int16_t* blk) {
+  if (*eobrun > 0) {
+    --*eobrun;
+    return true;
+  }
+  for (int k = ss; k <= se; ++k) {
+    const int rs = decode_huffman(br, ac);
+    if (rs < 0) return false;
+    const int r = rs >> 4, s = rs & 15;
+    if (s) {
+      k += r;
+      blk[kNatural[k]] = (int16_t)((unsigned)extend(br->get(s), s) << al);
+    } else if (r == 15) {
+      k += 15;
+    } else {
+      *eobrun = (1 << r) + (r ? br->get(r) : 0) - 1;
+      break;
+    }
+  }
+  return true;
+}
+
+static bool decode_ac_refine(BitReader* br, const Huffman* ac, int ss,
+                             int se, int al, int* eobrun, int16_t* blk) {
+  const int p1 = 1 << al;
+  int k = ss;
+  if (*eobrun == 0) {
+    for (; k <= se; ++k) {
+      const int rs = decode_huffman(br, ac);
+      if (rs < 0) return false;
+      int r = rs >> 4, s = rs & 15;
+      if (s) {  // a newly nonzero coefficient: its sign
+        s = br->get(1) ? p1 : -p1;
+      } else if (r != 15) {
+        *eobrun = (1 << r) + (r ? br->get(r) : 0);
+        break;  // the rest of the block is the end-of-band run's
+      }
+      // step over r zero coefficients, refining the nonzero ones
+      do {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0) {
+          refine(br, coef, p1);
+        } else if (--r < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= se);
+      if (s) blk[kNatural[k]] = (int16_t)s;
+    }
+  }
+  if (*eobrun > 0) {
+    for (; k <= se; ++k) {
+      int16_t* coef = blk + kNatural[k];
+      if (*coef != 0) refine(br, coef, p1);
+    }
+    --*eobrun;
   }
   return true;
 }
@@ -410,6 +503,7 @@ struct Decoder {
   std::vector<Component> comps;
   int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   int restart_interval = 0;
+  bool progressive = false;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
 
@@ -426,7 +520,7 @@ struct Decoder {
     height = u16();
     width = u16();
     const int n = data[pos++];
-    if (n != 1 && n != 3) return kUnsupported;
+    if (n != 1 && n != 3 && n != 4) return kUnsupported;
     if (width == 0 || height == 0) return kUnsupported;
     if (end - pos < (size_t)(3 * n)) return kTruncated;
     comps.resize(n);
@@ -451,6 +545,7 @@ struct Decoder {
       c.dw = (int)(((int64_t)width * c.h + hmax - 1) / hmax);
       c.dh = (int)(((int64_t)height * c.v + vmax - 1) / vmax);
       c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      for (int& b : c.coef_bits) b = -1;
     }
     return kOk;
   }
@@ -499,17 +594,54 @@ struct Decoder {
       if (!c) return kBadScan;
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].defined ||
-          !ac[c->ta].defined || !qt_defined[c->tq])
-        return kBadTable;
+      if (c->td > 3 || c->ta > 3 || !qt_defined[c->tq]) return kBadTable;
       sc.push_back(c);
     }
-    const int ss = data[pos], se = data[pos + 1], ahl = data[pos + 2];
+    const int ss = data[pos], se = data[pos + 1];
+    const int ah = data[pos + 2] >> 4, al = data[pos + 2] & 15;
     pos += 3;
-    if (ss != 0 || se != 63 || ahl != 0) return kUnsupported;
-    for (Component* c : sc) c->dc_pred = 0;
-
+    // the scan's kind, its parameters as libjpeg checks them (jdinput.c,
+    // jdphuff.c start_pass_phuff_decoder) and the tables it needs
+    enum { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine } kind;
+    if (!progressive) {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0) return kUnsupported;
+      kind = kSequential;
+    } else {
+      if (ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1))
+        return kBadScan;
+      if ((ah != 0 && al != ah - 1) || al > 13) return kBadScan;
+      kind = ss == 0 ? (ah ? kDcRefine : kDcFirst)
+                     : (ah ? kAcRefine : kAcFirst);
+      for (Component* c : sc)
+        for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+    }
+    for (Component* c : sc) {
+      if ((kind == kSequential || kind == kDcFirst) && !dc[c->td].defined)
+        return kBadTable;
+      if ((kind == kSequential || kind >= kAcFirst) && !ac[c->ta].defined)
+        return kBadTable;
+      c->dc_pred = 0;
+    }
+    int eobrun = 0;
     BitReader br{data, size, end};
+
+    // one block of the scan
+    auto block = [&](Component* c, int16_t* blk) {
+      switch (kind) {
+        case kSequential:
+          return decode_block(&br, &dc[c->td], &ac[c->ta], &c->dc_pred, blk);
+        case kDcFirst:
+          return decode_dc_first(&br, &dc[c->td], &c->dc_pred, blk, al);
+        case kDcRefine:
+          if (br.get(1)) blk[0] |= (int16_t)(1 << al);
+          return true;
+        case kAcFirst:
+          return decode_ac_first(&br, &ac[c->ta], ss, se, al, &eobrun, blk);
+        default:
+          return decode_ac_refine(&br, &ac[c->ta], ss, se, al, &eobrun,
+                                  blk);
+      }
+    };
     // MCUs of the scan: interleaved, or one block each for one component
     int nx, ny;
     if (ns == 1) {
@@ -526,6 +658,7 @@ struct Decoder {
         if (todo == 0) {
           if (!br.restart()) return kBadMarker;
           for (Component* c : sc) c->dc_pred = 0;
+          eobrun = 0;
           todo = restart_interval;
         }
         --todo;
@@ -533,8 +666,7 @@ struct Decoder {
       const int my = (int)(m / nx), mx = (int)(m % nx);
       if (ns == 1) {
         Component* c = sc[0];
-        int16_t* blk = c->coef.data() + ((size_t)my * c->bw + mx) * 64;
-        if (!decode_block(&br, &dc[c->td], &ac[c->ta], &c->dc_pred, blk))
+        if (!block(c, c->coef.data() + ((size_t)my * c->bw + mx) * 64))
           return kBadHuffman;
       } else {
         for (Component* c : sc) {
@@ -542,9 +674,7 @@ struct Decoder {
             for (int bx = 0; bx < c->h; ++bx) {
               const size_t b = (size_t)(my * c->v + by) * c->bw
                                + (size_t)mx * c->h + bx;
-              if (!decode_block(&br, &dc[c->td], &ac[c->ta], &c->dc_pred,
-                                c->coef.data() + b * 64))
-                return kBadHuffman;
+              if (!block(c, c->coef.data() + b * 64)) return kBadHuffman;
             }
         }
       }
@@ -557,6 +687,19 @@ struct Decoder {
       ++p;
     pos = p;
     return kOk;
+  }
+
+  // libjpeg-turbo smooths the blocks (jdcoefct.c smoothing_ok: every
+  // component's DC partly known, some bits of the first AC coefficients
+  // not; SAVED_COEFS is 10 since libjpeg-turbo 2.1, 6 before)
+  bool smoothed() const {
+    if (!progressive) return false;
+    for (const Component& c : comps)
+      if (c.coef_bits[0] < 0) return false;
+    for (const Component& c : comps)
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) return true;
+    return false;
   }
 
   // parse every marker up to EOI; entropy-coded data follows each SOS
@@ -579,13 +722,14 @@ struct Decoder {
       if (len < 2 || pos + len - 2 > size) return kTruncated;
       const size_t end = pos + len - 2;
       int err = kOk;
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         if (frame_seen) return kUnsupported;
         frame_seen = true;
+        progressive = m == 0xC2;
         err = frame(end);
       } else if ((m >= 0xC2 && m <= 0xCF) && m != 0xC4 && m != 0xC8 &&
                  m != 0xCC) {
-        return kUnsupported;  // progressive, lossless, arithmetic
+        return kUnsupported;  // lossless, hierarchical, arithmetic
       } else if (m == 0xDB) {
         err = quant(end);
       } else if (m == 0xC4) {
@@ -616,7 +760,7 @@ struct Decoder {
     return kOk;
   }
 
-  // the RGB / gray pixels (H, W, n_out), n_out = 1 or 3
+  // the gray / RGB / CMYK pixels (H, W, n_out), n_out = 1, 3 or 4
   void render(uint8_t* out) {
     const int W = width, H = height;
     std::vector<std::vector<uint8_t>> full(comps.size());
@@ -640,24 +784,6 @@ struct Decoder {
       std::memcpy(out, full[0].data(), n);
       return;
     }
-    bool ycc;
-    if (jfif) {
-      ycc = true;
-    } else if (adobe) {
-      ycc = adobe_transform != 0;
-    } else {
-      ycc = !(comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B');
-    }
-    const uint8_t *y = full[0].data(), *cb = full[1].data(),
-                  *cr = full[2].data();
-    if (!ycc) {
-      for (size_t i = 0; i < n; ++i) {
-        out[3 * i] = y[i];
-        out[3 * i + 1] = cb[i];
-        out[3 * i + 2] = cr[i];
-      }
-      return;
-    }
     // jdcolor.c build_ycc_rgb_table: SCALEBITS 16
     int cr_r[256], cb_b[256];
     int64_t cr_g[256], cb_g[256];
@@ -672,6 +798,45 @@ struct Decoder {
     auto clamp = [](int v) {
       return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
     };
+    const uint8_t *y = full[0].data(), *cb = full[1].data(),
+                  *cr = full[2].data();
+    if (comps.size() == 4) {
+      // libjpeg's CMYK (YCCK converted: C = 255 - (Y + Cr_r), ...), then
+      // PIL's inversion: YCCK gives Y + Cr_r etc. clamped, and 255 - K
+      const uint8_t* k = full[3].data();
+      const bool ycck = adobe && adobe_transform != 0;
+      for (size_t i = 0; i < n; ++i) {
+        uint8_t* o = out + 4 * i;
+        if (ycck) {
+          const int yy = y[i], b = cb[i], r = cr[i];
+          o[0] = clamp(yy + cr_r[r]);
+          o[1] = clamp(yy + (int)((cb_g[b] + cr_g[r]) >> 16));
+          o[2] = clamp(yy + cb_b[b]);
+        } else {
+          o[0] = (uint8_t)(255 - y[i]);
+          o[1] = (uint8_t)(255 - cb[i]);
+          o[2] = (uint8_t)(255 - cr[i]);
+        }
+        o[3] = (uint8_t)(255 - k[i]);
+      }
+      return;
+    }
+    bool ycc;
+    if (jfif) {
+      ycc = true;
+    } else if (adobe) {
+      ycc = adobe_transform != 0;
+    } else {
+      ycc = !(comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B');
+    }
+    if (!ycc) {
+      for (size_t i = 0; i < n; ++i) {
+        out[3 * i] = y[i];
+        out[3 * i + 1] = cb[i];
+        out[3 * i + 2] = cr[i];
+      }
+      return;
+    }
     for (size_t i = 0; i < n; ++i) {
       const int yy = y[i], b = cb[i], r = cr[i];
       out[3 * i] = clamp(yy + cr_r[r]);
@@ -685,10 +850,9 @@ struct Decoder {
 
 extern "C" {
 
-// Decode the baseline JPEG file `data` (`size` bytes) of `width` x
-// `height` pixels and `channels` (1 or 3) output channels, as the
-// caller read them from its frame header, into `out`. Returns 0 or a
-// `jpeg::Error`; 8 where the frame disagrees with the caller's sizes.
+// Decode the JPEG file `data` (`size` bytes) of `width` x `height`
+// pixels and `channels` (1, 3 or 4) output channels, as the caller read
+// them from its frame header, into `out`. Returns 0 or a `jpeg::Error`.
 int jpeg_decode(const uint8_t* data, int64_t size, int width, int height,
                 int channels, uint8_t* out) {
   jpeg::Decoder d;
@@ -698,7 +862,8 @@ int jpeg_decode(const uint8_t* data, int64_t size, int width, int height,
   if (err) return err;
   if (d.width != width || d.height != height ||
       (int)d.comps.size() != channels)
-    return 8;
+    return jpeg::kSizes;
+  if (d.smoothed()) return jpeg::kSmoothing;
   d.render(out);
   return 0;
 }

@@ -2,13 +2,16 @@
 preparation's reader.
 
 `read_jpeg(path)` returns what `np.asarray(PIL.Image.open(path))` returns
-for a baseline file: (h, w) uint8 for one component, (h, w, 3) uint8 RGB
-for three. The frame header is read here; the entropy decoding, the
-IDCT, the chroma upsampling and the colour conversion run in the host
-library (`csrc/host/jpeg_baseline.h`, libjpeg-turbo's integer IDCT,
-fancy upsampling and YCbCr tables, as Pillow decodes). Progressive
-(SOF2), lossless, arithmetic-coded and 12-bit files, and CMYK or other
-component counts, raise `NotPortedError` naming the file.
+for a baseline or progressive file: (h, w) uint8 for one component,
+(h, w, 3) uint8 RGB for three, (h, w, 4) uint8 CMYK for four (inverted,
+as PIL's mode CMYK holds them; YCCK converted). The frame header is read
+here; the entropy decoding, the IDCT, the chroma upsampling and the
+colour conversion run in the host library (`csrc/host/jpeg_baseline.h`,
+libjpeg-turbo's progressive decoding, integer IDCT, fancy upsampling and
+YCbCr tables, as Pillow decodes). Lossless, arithmetic-coded and 12-bit
+files, other component counts, and progressive files whose scans leave
+coefficient bits unknown (libjpeg-turbo smooths those) raise
+`NotPortedError` naming the file.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from emsanet_tpu_torch import native
 from emsanet_tpu_torch.config import NotPortedError
 
 SOI = b"\xff\xd8\xff"
-_SOF_NAMES = {0xC2: "progressive", 0xC3: "lossless",
+_SOF_NAMES = {0xC3: "lossless",
               0xC5: "differential sequential", 0xC6: "differential "
               "progressive", 0xC7: "differential lossless",
               0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded "
@@ -34,8 +37,8 @@ _SOF_NAMES = {0xC2: "progressive", 0xC3: "lossless",
 
 def frame_header(blob: bytes, name: str = "JPEG data"
                  ) -> Tuple[int, int, int]:
-    """(width, height, components) of a baseline / extended sequential
-    frame; raise `NotPortedError` for any other coding."""
+    """(width, height, components) of a baseline, extended sequential or
+    progressive frame; raise `NotPortedError` for any other coding."""
     if not blob.startswith(SOI):
         raise ValueError(f"{name} is not a JPEG file")
     pos = 2
@@ -51,16 +54,13 @@ def frame_header(blob: bytes, name: str = "JPEG data"
             pos += 2
             continue
         (length,) = struct.unpack(">H", blob[pos + 2:pos + 4])
-        if marker in (0xC0, 0xC1):
+        if marker in (0xC0, 0xC1, 0xC2):
             precision, height, width, n = struct.unpack(
                 ">BHHB", blob[pos + 4:pos + 10])
             if precision != 8:
                 raise NotPortedError(f"not ported yet: {precision}-bit JPEG "
                                      f"files ({name})")
-            if n == 4:
-                raise NotPortedError(f"not ported yet: CMYK JPEG files "
-                                     f"({name})")
-            if n not in (1, 3):
+            if n not in (1, 3, 4):
                 raise NotPortedError(f"not ported yet: JPEG files of {n} "
                                      f"components ({name})")
             return width, height, n
@@ -78,6 +78,8 @@ def decode_jpeg(blob: bytes, name: str = "JPEG data") -> np.ndarray:
     width, height, n = frame_header(blob, name)
     try:
         return native.jpeg_decode(blob, width, height, n)
+    except NotPortedError as e:
+        raise NotPortedError(f"not ported yet: {e} ({name})") from None
     except ValueError as e:
         raise ValueError(f"{name}: {e}") from None
 

@@ -17,10 +17,11 @@ file:
   palette 1, 2, 4, 8 bit (h, w) uint8 of raw indices (PIL's mode 'P')
 PIL keeps the high byte of a 16-bit colour or alpha sample, and so does
 this reader. A JPEG file given to it is decoded by `datasets/jpeg.py`
-(as PIL opens either), which refuses progressive and CMYK files.
-`decode_image(blob, name)` does the same for the bytes of a file, and
-with `rgb=True` returns what PIL's `.convert("RGB")` gives: gray
-replicated, alpha dropped, a palette looked up (16-bit gray refused).
+(as PIL opens either). `decode_image(blob, name)` does the same for the
+bytes of a file, and with `rgb=True` returns what PIL's
+`.convert("RGB")` gives: gray replicated (16-bit gray clipped to 255
+first), alpha dropped, a palette looked up, CMYK converted as PIL
+converts it.
 Ancillary chunks (tRNS, gAMA, ...) are ignored, as `np.asarray` of the
 opened image ignores them.
 
@@ -41,7 +42,6 @@ from typing import Optional, Union
 import numpy as np
 
 from emsanet_tpu_torch import native
-from emsanet_tpu_torch.config import NotPortedError
 from emsanet_tpu_torch.datasets import jpeg
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -73,8 +73,11 @@ def decode_image(blob: bytes, name: str = "image data",
     `rgb`, converted to RGB as PIL converts)."""
     if blob.startswith(jpeg.SOI):
         img = jpeg.decode_jpeg(blob, name)
-        return np.repeat(img[..., None], 3, -1) if rgb and img.ndim == 2 \
-            else img
+        if rgb and img.ndim == 2:
+            return np.repeat(img[..., None], 3, -1)
+        if rgb and img.shape[-1] == 4:
+            return _cmyk_to_rgb(img)
+        return img
     if not blob.startswith(SIGNATURE):
         raise ValueError(f"{name} is not a PNG file")
     img, color_type, palette = _decode_png(blob, name)
@@ -85,8 +88,8 @@ def decode_image(blob: bytes, name: str = "image data",
         table = np.concatenate([table, np.zeros((256 - len(table), 3),
                                                 np.uint8)])
         return table[img]
-    if img.dtype == np.uint16:
-        raise NotPortedError(f"not ported yet: 16-bit gray to RGB ({name})")
+    if img.dtype == np.uint16:  # PIL's I;16 -> RGB: clipped to 255
+        img = np.minimum(img, 255).astype(np.uint8)
     if img.dtype == bool:
         img = img.astype(np.uint8) * np.uint8(255)
     if img.ndim == 2:
@@ -94,6 +97,15 @@ def decode_image(blob: bytes, name: str = "image data",
     if img.shape[-1] == 2:  # gray + alpha
         return np.repeat(img[..., :1], 3, -1)
     return np.ascontiguousarray(img[..., :3])
+
+
+def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's CMYK -> RGB (Convert.c cmyk2rgb): each of C, M, Y scaled by
+    255 - K with PIL's rounding, subtracted from 255 - K."""
+    c = cmyk.astype(np.int32)
+    nk = 255 - c[..., 3:]
+    t = c[..., :3] * nk + 128
+    return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
 
 
 def _decode_png(blob: bytes, path: str):

@@ -1,8 +1,8 @@
 """ctypes bindings of the port's native host library.
 
 `csrc/host/emsanet_native.cpp`, a copy of the JAX package's host library
-plus the PNG reader's row unfiltering and the baseline JPEG decoder
-(`csrc/host/jpeg_baseline.h`), is compiled at first use with the
+plus the PNG reader's row unfiltering and the JPEG decoder (baseline and
+progressive, `csrc/host/jpeg_baseline.h`), is compiled at first use with the
 JAX package's flags (`g++ -O3 -march=native -ffast-math -fPIC`, linked
 without `-ffast-math`: at link time it would pull in `crtfastmath.o`,
 which sets FTZ/DAZ for the whole process) into
@@ -28,6 +28,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+
+from emsanet_tpu_torch.config import NotPortedError
 
 SOURCE = (Path(__file__).resolve().parent / "csrc" / "host"
           / "emsanet_native.cpp")
@@ -238,19 +240,26 @@ JPEG_ERRORS = {1: "truncated data", 2: "a bad or missing marker",
                3: "an unsupported coding", 4: "a bad Huffman code",
                5: "a bad table", 6: "no frame or scan", 7: "a bad scan header",
                8: "a frame unlike its header"}
+JPEG_SMOOTHED = 9
 
 
 def jpeg_decode(blob: bytes, width: int, height: int,
                 channels: int) -> np.ndarray:
-    """The pixels of a baseline JPEG file whose frame header gives
-    `width`, `height` and `channels` (1 or 3): (h, w) or (h, w, 3)
-    uint8, as PIL decodes them. Raises ValueError on a malformed
-    stream."""
+    """The pixels of a baseline or progressive JPEG file whose frame
+    header gives `width`, `height` and `channels` (1, 3 or 4): (h, w),
+    (h, w, 3) RGB or (h, w, 4) CMYK uint8, as PIL decodes them. Raises
+    NotPortedError for a progressive file whose scans leave coefficient
+    bits unknown (libjpeg-turbo smooths its blocks), ValueError on a
+    malformed stream."""
     lib = get_lib()
     raw = np.frombuffer(blob, np.uint8)
     out = np.empty((height, width, channels), np.uint8)
     err = lib.jpeg_decode(_ptr(raw, ctypes.c_uint8), raw.size, width,
                           height, channels, _ptr(out, ctypes.c_uint8))
+    if err == JPEG_SMOOTHED:
+        raise NotPortedError("progressive JPEG files whose scans leave "
+                             "coefficient bits unknown (libjpeg-turbo "
+                             "smooths their blocks)")
     if err:
         raise ValueError(f"JPEG data: {JPEG_ERRORS.get(err, err)}")
     return out[..., 0] if channels == 1 else out

@@ -6,26 +6,24 @@ reads.
 
 Counterpart of the repository's `tools/prepare_dataset.py`, with the
 same subcommands, flags and layout, and files whose decoded contents
-equal that tool's. It runs on the host without an image library: every
-image is written by `datasets/png.py::write_png`, PNG and JPEG inputs
-are read by the port's own readers (`datasets/png.py`, `datasets/
-jpeg.py`: baseline JPEG decoded as PIL decodes it; progressive and CMYK
-JPEG raise `NotPortedError`), and PIL's BILINEAR and NEAREST resizes
-are `imaging.resize_bilinear_u8` and `imaging.resize_nearest`.
+equal that tool's. It runs on the host without an image library and
+without h5py: every image is written by `datasets/png.py::write_png`,
+PNG and JPEG inputs are read by the port's own readers (`datasets/
+png.py`, `datasets/jpeg.py`: baseline, progressive and CMYK JPEG
+decoded as PIL decodes them), HDF5 files by `datasets/hdf5.py`, and
+PIL's BILINEAR and NEAREST resizes are `imaging.resize_bilinear_u8` and
+`imaging.resize_nearest`.
 
-  nyuv2         nyu_depth_v2_labeled.mat (v7.3, through h5py) + splits.mat
-                + an optional 894->40 class mapping .mat (scipy)
+  nyuv2         nyu_depth_v2_labeled.mat (MATLAB v7.3, which is HDF5) +
+                splits.mat + an optional 894->40 class mapping .mat
+                (scipy)
   sunrgbd       the SUNRGB-D toolbox layout (seg.mat, 3D boxes, allsplit)
-  hypersim      the apple-hypersim download (HDF5 through h5py)
+  hypersim      the apple-hypersim download (HDF5 files, JPEG previews)
   scannet       the ScanNet v2 download (.sens streams, label zips)
   coco          the COCO panoptic release
   cityscapes    leftImg8bit / gtFine / disparity PNGs
   scenenetrgbd  SceneNetRGBD trajectories and their protobufs
   synthetic     the synthetic dataset (no input data)
-
-nyuv2 and hypersim need h5py, which is imported only there: where it is
-missing they raise an ImportError that names it (the card's machine has
-scipy but no h5py; preparation runs on any host).
 
 Prepared layout (one directory per split):
   <out>/<split>/rgb/<id>.png            HWC uint8
@@ -48,6 +46,7 @@ import sys
 import numpy as np
 
 from emsanet_tpu_torch import imaging
+from emsanet_tpu_torch.datasets import hdf5
 from emsanet_tpu_torch.datasets.metadata import (
     NYUV2_40,
     SUNRGBD_37,
@@ -64,18 +63,6 @@ from emsanet_tpu_torch.datasets.png import (
 
 def _save_png(path, arr):
     write_png(path, np.asarray(arr))
-
-
-def _h5py():
-    """h5py, imported where a preparer needs it."""
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(
-            "h5py is needed to read NYUv2's .mat (v7.3) and Hypersim's "
-            "HDF5 files; install h5py on the host that prepares the "
-            "dataset") from e
-    return h5py
 
 
 def compute_depth_stats(depth_dir, max_files=2000):
@@ -246,104 +233,107 @@ def prepare_nyuv2(mat_path, splits_path, class_mapping_path, out_dir):
     from scipy import io as sio
 
     print(f"reading {mat_path} ...")
-    f = _h5py().File(mat_path, "r")
-    images = f["images"]  # (N, 3, W, H) in h5py order
-    depths = f["depths"]  # refined, meters
-    raw_depths = f.get("rawDepths", depths)
-    labels = f["labels"]  # 894-class
-    instances = f["instances"]
-    scenes = None
-    if "sceneTypes" in f:
-        refs = f["sceneTypes"][0]
-        scenes = [
-            "".join(chr(c[0]) for c in f[r][:]) for r in refs
-        ]
+    with hdf5.File(mat_path) as f:
+        images = f["images"]  # (N, 3, W, H) in h5py order
+        depths = f["depths"]  # refined, meters
+        raw_depths = f.get("rawDepths", depths)
+        labels = f["labels"]  # 894-class
+        instances = f["instances"]
+        scenes = None
+        if "sceneTypes" in f:
+            refs = f["sceneTypes"][0]
+            scenes = [
+                "".join(chr(c[0]) for c in f[r][:]) for r in refs
+            ]
 
-    n = images.shape[0]
+        n = images.shape[0]
 
-    # splits: train/test indices (1-based in the official splits.mat)
-    if splits_path:
-        splits = sio.loadmat(splits_path)
-        train_idx = set(int(i) - 1 for i in splits["trainNdxs"].ravel())
-        test_idx = set(int(i) - 1 for i in splits["testNdxs"].ravel())
-    else:
-        train_idx = set(range(0, n, 2))
-        test_idx = set(range(1, n, 2))
-
-    mapping = None
-    if class_mapping_path:
-        m = sio.loadmat(class_mapping_path)
-        key = "mapClass" if "mapClass" in m else "className"
-        mapping = np.concatenate([[0], m[key].ravel()]).astype(np.int32)
-
-    scene_names = sorted(set(scenes)) if scenes else []
-    scene_index = {s: i + 1 for i, s in enumerate(scene_names)}
-
-    for i in range(n):
-        split = "train" if i in train_idx else (
-            "test" if i in test_idx else None
-        )
-        if split is None:
-            continue
-        sid = f"{i:04d}"
-        base = os.path.join(out_dir, split)
-
-        rgb = np.transpose(np.asarray(images[i]), (2, 1, 0)).astype(np.uint8)
-        _save_png(os.path.join(base, "rgb", f"{sid}.png"), rgb)
-
-        depth_m = np.transpose(np.asarray(depths[i]), (1, 0))
-        _save_png(
-            os.path.join(base, "depth", f"{sid}.png"),
-            np.clip(depth_m * 1000.0, 0, 65535).astype(np.uint16),
-        )
-        raw_m = np.transpose(np.asarray(raw_depths[i]), (1, 0))
-        _save_png(
-            os.path.join(base, "depth_raw", f"{sid}.png"),
-            np.clip(raw_m * 1000.0, 0, 65535).astype(np.uint16),
-        )
-
-        # per-pixel normals from the refined depth (reference data.py:230
-        # expects a 'normal' sample key on prepared NYUv2)
-        _save_png(
-            os.path.join(base, "normal", f"{sid}.png"),
-            encode_normals_png(normals_from_depth(depth_m)),
-        )
-
-        label = np.transpose(np.asarray(labels[i]), (1, 0)).astype(np.int32)
-        if mapping is not None:
-            label40 = mapping[np.clip(label, 0, len(mapping) - 1)]
-            _save_png(
-                os.path.join(base, "semantic_40", f"{sid}.png"),
-                label40.astype(np.uint8),
-            )
+        # splits: train/test indices (1-based in the official splits.mat)
+        if splits_path:
+            splits = sio.loadmat(splits_path)
+            train_idx = set(int(i) - 1 for i in splits["trainNdxs"].ravel())
+            test_idx = set(int(i) - 1 for i in splits["testNdxs"].ravel())
         else:
+            train_idx = set(range(0, n, 2))
+            test_idx = set(range(1, n, 2))
+
+        mapping = None
+        if class_mapping_path:
+            m = sio.loadmat(class_mapping_path)
+            key = "mapClass" if "mapClass" in m else "className"
+            mapping = np.concatenate([[0], m[key].ravel()]).astype(np.int32)
+
+        scene_names = sorted(set(scenes)) if scenes else []
+        scene_index = {s: i + 1 for i, s in enumerate(scene_names)}
+
+        for i in range(n):
+            split = "train" if i in train_idx else (
+                "test" if i in test_idx else None
+            )
+            if split is None:
+                continue
+            sid = f"{i:04d}"
+            base = os.path.join(out_dir, split)
+
+            rgb = np.transpose(np.asarray(images[i]), (2, 1, 0)).astype(
+                np.uint8)
+            _save_png(os.path.join(base, "rgb", f"{sid}.png"), rgb)
+
+            depth_m = np.transpose(np.asarray(depths[i]), (1, 0))
             _save_png(
-                os.path.join(base, "semantic_raw", f"{sid}.png"),
-                np.clip(label, 0, 65535).astype(np.uint16),
+                os.path.join(base, "depth", f"{sid}.png"),
+                np.clip(depth_m * 1000.0, 0, 65535).astype(np.uint16),
+            )
+            raw_m = np.transpose(np.asarray(raw_depths[i]), (1, 0))
+            _save_png(
+                os.path.join(base, "depth_raw", f"{sid}.png"),
+                np.clip(raw_m * 1000.0, 0, 65535).astype(np.uint16),
             )
 
-        inst = np.transpose(np.asarray(instances[i]), (1, 0)).astype(np.int32)
-        # NYUv2 instances are per-class; combine to globally unique ids
-        combined = np.zeros_like(inst)
-        next_id = 1
-        for cls in np.unique(label[inst > 0]):
-            cls_mask = label == cls
-            for raw_id in np.unique(inst[cls_mask & (inst > 0)]):
-                combined[cls_mask & (inst == raw_id)] = next_id
-                next_id += 1
-        _save_png(
-            os.path.join(base, "instance", f"{sid}.png"),
-            np.clip(combined, 0, 65535).astype(np.uint16),
-        )
+            # per-pixel normals from the refined depth (reference data.py:230
+            # expects a 'normal' sample key on prepared NYUv2)
+            _save_png(
+                os.path.join(base, "normal", f"{sid}.png"),
+                encode_normals_png(normals_from_depth(depth_m)),
+            )
 
-        if scenes:
-            os.makedirs(os.path.join(base, "scene_class"), exist_ok=True)
-            with open(
-                os.path.join(base, "scene_class", f"{sid}.txt"), "w"
-            ) as fh:
-                fh.write(str(scene_index[scenes[i]]))
-        if i % 100 == 0:
-            print(f"  {i}/{n}")
+            label = np.transpose(np.asarray(labels[i]), (1, 0)).astype(
+                np.int32)
+            if mapping is not None:
+                label40 = mapping[np.clip(label, 0, len(mapping) - 1)]
+                _save_png(
+                    os.path.join(base, "semantic_40", f"{sid}.png"),
+                    label40.astype(np.uint8),
+                )
+            else:
+                _save_png(
+                    os.path.join(base, "semantic_raw", f"{sid}.png"),
+                    np.clip(label, 0, 65535).astype(np.uint16),
+                )
+
+            inst = np.transpose(np.asarray(instances[i]), (1, 0)).astype(
+                np.int32)
+            # NYUv2 instances are per-class; combine to globally unique ids
+            combined = np.zeros_like(inst)
+            next_id = 1
+            for cls in np.unique(label[inst > 0]):
+                cls_mask = label == cls
+                for raw_id in np.unique(inst[cls_mask & (inst > 0)]):
+                    combined[cls_mask & (inst == raw_id)] = next_id
+                    next_id += 1
+            _save_png(
+                os.path.join(base, "instance", f"{sid}.png"),
+                np.clip(combined, 0, 65535).astype(np.uint16),
+            )
+
+            if scenes:
+                os.makedirs(os.path.join(base, "scene_class"), exist_ok=True)
+                with open(
+                    os.path.join(base, "scene_class", f"{sid}.txt"), "w"
+                ) as fh:
+                    fh.write(str(scene_index[scenes[i]]))
+            if i % 100 == 0:
+                print(f"  {i}/{n}")
 
     if scene_names:
         with open(os.path.join(out_dir, "scene_names.json"), "w") as fh:
@@ -665,7 +655,7 @@ def _hypersim_planar_depth(dist_m, focal_px):
 
 
 def _read_h5(path):
-    with _h5py().File(path, "r") as fh:
+    with hdf5.File(path) as fh:
         return np.asarray(fh["dataset"])
 
 

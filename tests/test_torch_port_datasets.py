@@ -377,8 +377,10 @@ def test_class_weights_from_disk_match_jax(roots):
 
 
 def test_jpeg_rgb_is_refused(roots, tmp_path):
-    """A baseline JPEG rgb file loads as the JAX package's loader (PIL)
-    loads it; a progressive one is refused, naming the file."""
+    """Baseline and progressive JPEG rgb files load as the JAX package's
+    loader (PIL) loads them; a progressive one whose scans leave
+    coefficient bits unknown (its first scan alone) is refused, naming
+    the file."""
     from PIL import Image
 
     from emsanet_tpu_torch.config import NotPortedError
@@ -389,12 +391,19 @@ def test_jpeg_rgb_is_refused(roots, tmp_path):
     Image.open(os.path.join(rgb, "0000.png")).save(
         os.path.join(rgb, "0000.jpg"))
     os.unlink(os.path.join(rgb, "0000.png"))
-    Image.open(os.path.join(rgb, "0001.png")).save(
-        os.path.join(rgb, "0001.jpg"), progressive=True)
+    progressive = os.path.join(rgb, "0001.jpg")
+    Image.open(os.path.join(rgb, "0001.png")).save(progressive,
+                                                   progressive=True)
     os.unlink(os.path.join(rgb, "0001.png"))
     ds = disk.PreparedDataset(root, "nyuv2", "test", KEYS)
     want = jax_disk.PreparedDataset(root, "nyuv2", "test", KEYS)
     _same(ds.load_raw(0), want.load_raw(0))
+    _same(ds.load_raw(1), want.load_raw(1))
+    with open(progressive, "rb") as fh:
+        blob = fh.read()
+    second_scan = blob.index(b"\xff\xda", blob.index(b"\xff\xda") + 2)
+    with open(progressive, "wb") as fh:
+        fh.write(blob[:second_scan] + b"\xff\xd9")
     with pytest.raises(NotPortedError, match="progressive.*0001.jpg"):
         ds.load_raw(1)
 

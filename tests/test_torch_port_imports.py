@@ -4,10 +4,12 @@ library.
 Parses every module of `emsanet_tpu_torch/` and `chip_smoke.py` with
 `ast` and fails on any `import` or `from ... import` of `jax`, `flax`,
 `optax` or `emsanet_tpu` (`emsanet_tpu_torch` is the port itself), or of
-`PIL`, `cv2`, `matplotlib` or `msgpack` (the card's machine has none of
-them: the port reads and writes PNG files itself, `datasets/png.py`,
-resizes and draws with numpy, `imaging.py`, and decodes the JAX
-package's checkpoints itself, `training/jax_checkpoint.py`).
+`PIL`, `cv2`, `matplotlib`, `msgpack` or `h5py` (the card's machine has
+none of them: the port reads and writes PNG files itself, `datasets/
+png.py`, decodes JPEG files itself, `datasets/jpeg.py`, reads HDF5 files
+itself, `datasets/hdf5.py`, resizes and draws with numpy, `imaging.py`,
+and decodes the JAX package's checkpoints itself,
+`training/jax_checkpoint.py`).
 """
 
 import ast
@@ -17,7 +19,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "emsanet_tpu", "PIL", "cv2",
-             "matplotlib", "msgpack")
+             "matplotlib", "msgpack", "h5py")
 FILES = sorted((ROOT / "emsanet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 

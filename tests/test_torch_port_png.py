@@ -7,8 +7,11 @@ gray + alpha, RGB and RGBA at 8 and 16 bits and palette images at 1,
 2, 4 and 8 bits, each written with every PNG row filter (0-4 and a
 per-row mix), at an odd width (sub-byte rows end mid-byte), interlaced
 (Adam7) files of every mode at sizes whose passes are empty or ragged,
-and files PIL writes itself. A baseline JPEG file is decoded as PIL
-decodes it; progressive and CMYK JPEG files raise `NotPortedError`.
+and files PIL writes itself; `read_rgb` must return PIL's
+`.convert("RGB")` of each mode (16-bit gray clipped to 255). Baseline,
+progressive and CMYK JPEG files are decoded as PIL decodes them; a
+progressive file whose scans leave coefficient bits unknown and an
+arithmetic-coded one raise `NotPortedError`.
 """
 
 import struct
@@ -66,6 +69,17 @@ def test_read_png_equals_pil(tmp_path, mode):
             want = np.asarray(img)
         assert got.dtype == want.dtype and got.shape == want.shape, f
         assert np.array_equal(got, want), f
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_read_rgb_equals_pil_convert(tmp_path, mode):
+    path = str(tmp_path / f"{mode}.png")
+    _write(path, mode, "adaptive", seed=5)
+    with Image.open(path) as img:
+        want = np.asarray(img.convert("RGB"))
+    got = png.read_rgb(path)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("pil_mode", ["L", "I;16", "RGB", "RGBA", "P", "1",
@@ -171,23 +185,33 @@ def test_interlaced_matches_pil(tmp_path, mode, size):
 
 
 def test_unported_files_raise(tmp_path):
-    """Progressive and CMYK JPEG files raise naming the file; a baseline
-    JPEG file given to the PNG reader is decoded as PIL decodes it."""
+    """A progressive JPEG file whose scans leave coefficient bits unknown
+    and an arithmetic-coded one raise naming the file; baseline,
+    progressive and CMYK JPEG files given to the PNG reader are decoded
+    as PIL decodes them."""
     rgb = np.random.default_rng(3).integers(0, 256, (9, 11, 3),
                                             dtype=np.uint8)
-    jpg = str(tmp_path / "rgb.jpg")
-    Image.fromarray(rgb).save(jpg)
-    with Image.open(jpg) as img:
-        assert np.array_equal(png.read_png(jpg), np.asarray(img))
-    progressive = str(tmp_path / "progressive.jpg")
-    Image.fromarray(rgb).save(progressive, progressive=True)
+    for name, kw in (("rgb", {}), ("progressive", {"progressive": True}),
+                     ("cmyk", {})):
+        jpg = str(tmp_path / f"{name}.jpg")
+        img = Image.fromarray(rgb)
+        (img.convert("CMYK") if name == "cmyk" else img).save(jpg, **kw)
+        with Image.open(jpg) as img:
+            assert np.array_equal(png.read_png(jpg), np.asarray(img))
+            assert np.array_equal(png.read_rgb(jpg),
+                                  np.asarray(img.convert("RGB")))
+    blob = open(tmp_path / "progressive.jpg", "rb").read()
+    second_scan = blob.index(b"\xff\xda", blob.index(b"\xff\xda") + 2)
+    cut = str(tmp_path / "cut.jpg")
+    open(cut, "wb").write(blob[:second_scan] + b"\xff\xd9")
     with pytest.raises(NotPortedError,
-                       match="progressive JPEG.*progressive.jpg"):
-        png.read_png(progressive)
-    cmyk = str(tmp_path / "cmyk.jpg")
-    Image.fromarray(rgb).convert("CMYK").save(cmyk)
-    with pytest.raises(NotPortedError, match="CMYK JPEG.*cmyk.jpg"):
-        png.read_png(cmyk)
+                       match="coefficient bits unknown.*cut.jpg"):
+        png.read_png(cut)
+    blob = open(tmp_path / "rgb.jpg", "rb").read()
+    arithmetic = str(tmp_path / "arithmetic.jpg")
+    open(arithmetic, "wb").write(blob.replace(b"\xff\xc0", b"\xff\xc9", 1))
+    with pytest.raises(NotPortedError, match="arithmetic.*arithmetic.jpg"):
+        png.read_png(arithmetic)
     text = tmp_path / "x.png"
     text.write_text("not a png")
     with pytest.raises(ValueError, match="not a PNG"):

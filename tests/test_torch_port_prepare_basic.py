@@ -3,14 +3,14 @@ emsanet_tpu_torch.prepare_dataset`) against `tools/prepare_dataset.py`,
 on the CPU: the helpers (depth statistics, meta.json, normals from
 depth and their encoding), the synthetic and Cityscapes preparers (PNG
 inputs) and the command line, whose subcommands and flags are the
-tool's. Raw fixtures come from the tool's own tests
-(`tests/test_prepare_*.py`); the trees are compared by
+tool's, and the NYUv2 and Hypersim preparers with h5py and PIL missing.
+Raw fixtures come from the tool's own tests (`tests/test_prepare_*.py`)
+and `tests/data/hdf5/`; the trees are compared by
 `tests/torch_prepare_cases.py`.
 """
 
 import argparse
 import json
-import os
 import subprocess
 import sys
 
@@ -19,6 +19,8 @@ import pytest
 from test_prepare_cityscapes import _make_raw as make_cityscapes
 from torch_prepare_cases import ROOT, assert_same_tree, port, prepare_both, \
     tool
+
+import chip_smoke
 
 
 def test_normals_from_depth_and_encoding_equal_the_tool():
@@ -121,11 +123,22 @@ def test_port_module_imports_no_image_library():
 @pytest.mark.parametrize("name", ["nyuv2", "hypersim"])
 def test_h5py_preparers_name_h5py_where_it_is_missing(name, tmp_path,
                                                       monkeypatch):
-    monkeypatch.setitem(sys.modules, "h5py", None)
-    with pytest.raises(ImportError, match="h5py"):
-        if name == "nyuv2":
-            port.prepare_nyuv2(str(tmp_path / "x.mat"), None, None,
-                               str(tmp_path / "out"))
-        else:
-            port._read_h5(str(tmp_path / "x.hdf5"))
-    assert not os.path.exists(tmp_path / "out")
+    """The two HDF5 preparers run where h5py (and PIL) is missing: on the
+    committed fixture sets (`tests/data/hdf5/`) the port's tree equals
+    the tool's."""
+    data = ROOT / "tests" / "data" / "hdf5"
+    if name == "nyuv2":
+        splits, mapping = chip_smoke.nyuv2_tables(str(tmp_path))
+        args = (str(data / "nyuv2" / "nyu_depth_v2_labeled.mat"), splits,
+                mapping)
+    else:
+        args = (str(data / "hypersim"),)
+    want = str(tmp_path / "tool")
+    getattr(tool, f"prepare_{name}")(*args, want)
+    got = str(tmp_path / "port")
+    with monkeypatch.context() as blocked:
+        for module in ("h5py", "PIL", "PIL.Image"):
+            blocked.setitem(sys.modules, module, None)
+        getattr(port, f"prepare_{name}")(*args, got)
+    assert assert_same_tree(got, want) == {"nyuv2": 23,
+                                           "hypersim": 13}[name]
