@@ -2913,6 +2913,8 @@ def _cityscapes_raw(root, height, width, n_train, n_val):
 
 HDF5_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "tests", "data", "hdf5")
+# the same arrays in the newer format (libver 'latest'): the same trees
+HDF5_LATEST_FIXTURES = HDF5_FIXTURES + "_latest"
 NYUV2_SPLITS = {"trainNdxs": (1,), "testNdxs": (2, 3)}  # the fixture's frames
 
 
@@ -2964,31 +2966,20 @@ def prepare_phase(torch, modules, tmp):
     set at 1024x2048 that the port writes itself, checked against the
     tool's documented mapping; (c) `prepare_synthetic` at 640x480, then
     one validation of it on the card (`validate_prepared`); (d) the
-    HDF5 fixture sets (`prepare_hdf5_sets`); (e) one validation of the
-    prepared NYUv2 set on the card."""
+    HDF5 fixture sets in both formats (`prepare_hdf5_sets`); (e) one
+    validation of each prepared NYUv2 set on the card. (a) also logs the
+    host decode time per pixel of each coding's fixtures (Huffman,
+    arithmetic, lossless, smoothed progressive)."""
     import numpy as np
 
     from emsanet_tpu_torch import prepare_dataset
     from emsanet_tpu_torch import train as trainer
-    from emsanet_tpu_torch.datasets.jpeg import read_jpeg
     from emsanet_tpu_torch.datasets.png import read_png
 
     t_phase = time.perf_counter()
     report = {}
     # (a) the JPEG fixtures
-    names = sorted(f[:-4] for f in os.listdir(JPEG_FIXTURES)
-                   if f.endswith(".jpg"))
-    if not names:
-        raise AssertionError(f"[prepare] no JPEG fixtures in {JPEG_FIXTURES}")
-    for name in names:
-        got = read_jpeg(os.path.join(JPEG_FIXTURES, name + ".jpg"))
-        want = read_png(os.path.join(JPEG_FIXTURES, name + ".png"))
-        if got.shape != want.shape or not np.array_equal(got, want):
-            raise AssertionError(f"[prepare] JPEG fixture {name}: the "
-                                 "decoder differs from PIL's pixels")
-    log(f"[prepare] JPEG decoder equals PIL's pixels bit for bit on "
-        f"{len(names)} fixtures: {names}")
-    report["jpeg_fixtures"] = names
+    report.update(check_jpeg_fixtures())
 
     # (b) Cityscapes
     raw, out = os.path.join(tmp, "cityscapes_raw"), os.path.join(
@@ -3054,17 +3045,19 @@ def prepare_phase(torch, modules, tmp):
         f"{logs.get('valid_semantic_miou')}")
     report.update(valid_s=valid_s, launches=launches)
 
-    # (d) the HDF5 sets, with h5py and PIL absent
+    # (d) the HDF5 sets, both formats, with h5py and PIL absent
     report["hdf5"] = prepare_hdf5_sets(tmp)
-    # (e) the prepared NYUv2 set, validated on the card
-    valid_s, launches, logs = validate_prepared(
-        torch, modules, trainer, os.path.join(tmp, "nyuv2"),
-        os.path.join(tmp, "prepare_runs_nyuv2"), "nyuv2")
-    log(f"[prepare] nyuv2 from the .mat: validation of its test split on "
-        f"the card (flagship R34, bf16, b2, decode-planes): {valid_s:.1f} "
-        f"s with setup; launches {json.dumps(launches)}; "
-        f"valid_semantic_miou {logs.get('valid_semantic_miou')}")
-    report["hdf5"].update(nyuv2_valid_s=valid_s, nyuv2_launches=launches)
+    # (e) the prepared NYUv2 sets, validated on the card
+    for fmt in ("", "_latest"):
+        valid_s, launches, logs = validate_prepared(
+            torch, modules, trainer, os.path.join(tmp, "nyuv2" + fmt),
+            os.path.join(tmp, "prepare_runs_nyuv2" + fmt), "nyuv2" + fmt)
+        log(f"[prepare] nyuv2{fmt} from the .mat: validation of its test "
+            f"split on the card (flagship R34, bf16, b2, decode-planes): "
+            f"{valid_s:.1f} s with setup; launches {json.dumps(launches)}; "
+            f"valid_semantic_miou {logs.get('valid_semantic_miou')}")
+        report["hdf5"].update({f"nyuv2{fmt}_valid_s": valid_s,
+                               f"nyuv2{fmt}_launches": launches})
     report["seconds"] = time.perf_counter() - t_phase
     log(f"[prepare] phase {report['seconds']:.1f} s")
     return report
@@ -3107,15 +3100,72 @@ def validate_prepared(torch, modules, trainer, root, runs, what):
     return valid_s, launches, logs
 
 
+def check_jpeg_fixtures():
+    """[prepare] (a): the port's decoder (`read_jpeg`) equals the PNG of
+    PIL's pixels beside each `tests/data/jpeg/*.jpg` (baseline,
+    progressive, CMYK, YCCK; arithmetic-coded, lossless, smoothed
+    progressive); and the host decode time of each coding's fixtures, ms
+    and ns per pixel (the median of 20 decodes a fixture, the median
+    over the coding's fixtures). Runs as is on the CPU."""
+    import numpy as np
+
+    from emsanet_tpu_torch.datasets.jpeg import read_jpeg
+    from emsanet_tpu_torch.datasets.png import read_png
+
+    names = sorted(f[:-4] for f in os.listdir(JPEG_FIXTURES)
+                   if f.endswith(".jpg"))
+    if not names:
+        raise AssertionError(f"[prepare] no JPEG fixtures in {JPEG_FIXTURES}")
+    decode = {}  # coding: [(host ms, pixels) of each fixture]
+    for name in names:
+        path = os.path.join(JPEG_FIXTURES, name + ".jpg")
+        got = read_jpeg(path)
+        want = read_png(os.path.join(JPEG_FIXTURES, name + ".png"))
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"[prepare] JPEG fixture {name}: the "
+                                 "decoder differs from PIL's pixels")
+        coding = name.split("_")[0] if name.startswith(
+            ("arith", "lossless", "smoothed")) else "huffman"
+        decode.setdefault(coding, []).append(
+            (_decode_ms(read_jpeg, path), got.shape[0] * got.shape[1]))
+    per_coding = {}
+    for coding, runs in sorted(decode.items()):
+        ms = sorted(t for t, _ in runs)
+        ns = sorted(t * 1e6 / n for t, n in runs)
+        per_coding[coding] = {"fixtures": len(runs),
+                              "ms": ms[len(ms) // 2],
+                              "ns_per_pixel": ns[len(ns) // 2]}
+    log(f"[prepare] JPEG decoder equals PIL's pixels bit for bit on "
+        f"{len(names)} fixtures: {names}")
+    log(f"[prepare] JPEG host decode (read_jpeg, median of 20 a fixture; "
+        f"the median over each coding's fixtures): "
+        f"{json.dumps(per_coding)}")
+    return {"jpeg_fixtures": names, "jpeg_decode": per_coding}
+
+
+def _decode_ms(read, path, runs=20):
+    """The median host ms of `runs` calls of read(path), after one."""
+    read(path)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        read(path)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[runs // 2]
+
+
 def prepare_hdf5_sets(tmp):
-    """[prepare] (d): the committed HDF5 fixture sets (`tests/data/hdf5/`:
-    a NYUv2-layout MATLAB v7.3 .mat, 3 frames at 640x480, and a Hypersim
-    raw tree with a progressive tonemap.jpg) prepared into tmp/{nyuv2,
-    hypersim} by the port with h5py and PIL absent (`splits.mat` and the
-    class mapping written by scipy.io.savemat); the digests of both trees
-    must equal `expected.json` (the tool's trees). Also the port's HDF5
-    read ms per NYUv2 frame (its five arrays, each frame's chunks read
-    and inflated once, a new file handle)."""
+    """[prepare] (d): the committed HDF5 fixture sets prepared by the port
+    with h5py and PIL absent into tmp/{nyuv2, hypersim} (`tests/data/
+    hdf5/`: a NYUv2-layout MATLAB v7.3 .mat, 3 frames at 640x480, and a
+    Hypersim raw tree with a progressive tonemap.jpg) and tmp/{nyuv2,
+    hypersim}_latest (`tests/data/hdf5_latest/`: the same arrays written
+    with libver 'latest': superblock 3, version-2 headers, dense links,
+    fixed and extensible arrays, a v2 B-tree, lzf); `splits.mat` and the
+    class mapping written by scipy.io.savemat. The digests of all four
+    trees must equal `expected.json` (the tool's trees). Also the port's
+    HDF5 read ms per NYUv2 frame in both formats (its five arrays, each
+    frame's chunks read and inflated once, a new file handle)."""
     import numpy as np
 
     from emsanet_tpu_torch import prepare_dataset
@@ -3124,52 +3174,61 @@ def prepare_hdf5_sets(tmp):
 
     with open(os.path.join(HDF5_FIXTURES, "expected.json")) as fh:
         expected = json.load(fh)
-    mat = os.path.join(HDF5_FIXTURES, "nyuv2", "nyu_depth_v2_labeled.mat")
     report = {}
     saved = {m: sys.modules.pop(m, None) for m in ("h5py", "PIL")}
     sys.modules.update(dict.fromkeys(saved))  # `import h5py` now fails
     try:
         splits, mapping = nyuv2_tables(tmp)
-        for name, call in (
-                ("nyuv2", lambda out: prepare_dataset.prepare_nyuv2(
-                    mat, splits, mapping, out)),
-                ("hypersim", lambda out: prepare_dataset.prepare_hypersim(
-                    os.path.join(HDF5_FIXTURES, "hypersim"), out))):
-            out = os.path.join(tmp, name)
-            t0 = time.perf_counter()
-            call(out)
-            report[f"{name}_prepare_s"] = time.perf_counter() - t0
-            got = tree_digests(out, read_png)
-            wrong = sorted(k for k in set(got) | set(expected[name])
-                           if got.get(k) != expected[name].get(k))
-            if wrong:
-                raise AssertionError(f"[prepare] {name} from HDF5: "
-                                     f"{len(wrong)} of {len(got)} files "
-                                     f"differ from expected.json: "
-                                     f"{wrong[:8]}")
-            report[f"{name}_files"] = len(got)
+        for fmt, root in (("", HDF5_FIXTURES),
+                          ("_latest", HDF5_LATEST_FIXTURES)):
+            mat = os.path.join(root, "nyuv2", "nyu_depth_v2_labeled.mat")
+            for name, call in (
+                    ("nyuv2", lambda out: prepare_dataset.prepare_nyuv2(
+                        mat, splits, mapping, out)),
+                    ("hypersim", lambda out: prepare_dataset.prepare_hypersim(
+                        os.path.join(root, "hypersim"), out))):
+                out = os.path.join(tmp, name + fmt)
+                t0 = time.perf_counter()
+                call(out)
+                report[f"{name}{fmt}_prepare_s"] = time.perf_counter() - t0
+                got = tree_digests(out, read_png)
+                wrong = sorted(k for k in set(got) | set(expected[name])
+                               if got.get(k) != expected[name].get(k))
+                if wrong:
+                    raise AssertionError(
+                        f"[prepare] {name}{fmt} from HDF5: {len(wrong)} of "
+                        f"{len(got)} files differ from expected.json: "
+                        f"{wrong[:8]}")
+                report[f"{name}{fmt}_files"] = len(got)
     finally:
         for m, mod in saved.items():
             if mod is None:
                 sys.modules.pop(m, None)
             else:
                 sys.modules[m] = mod
-    frame_ms = []
-    with hdf5.File(mat) as f:
-        arrays = [f[k] for k in ("images", "depths", "rawDepths", "labels",
-                                 "instances")]
-        for i in range(arrays[0].shape[0]):
-            t0 = time.perf_counter()
-            nbytes = sum(np.asarray(a[i]).nbytes for a in arrays)
-            frame_ms.append((time.perf_counter() - t0) * 1e3)
-    report.update(hdf5_frame_ms=frame_ms, hdf5_frame_bytes=nbytes)
-    log(f"[prepare] nyuv2 .mat (3 frames 640x480) and hypersim (2 frames "
-        f"256x192, progressive JPEG) prepared without h5py and PIL in "
-        f"{report['nyuv2_prepare_s']:.2f} / "
-        f"{report['hypersim_prepare_s']:.2f} s (host); "
-        f"{report['nyuv2_files']} + {report['hypersim_files']} files equal "
-        f"to expected.json; HDF5 read of one frame's five arrays "
-        f"({nbytes} bytes): {', '.join(f'{t:.2f}' for t in frame_ms)} ms")
+    for fmt, root in (("", HDF5_FIXTURES), ("_latest", HDF5_LATEST_FIXTURES)):
+        frame_ms = []
+        with hdf5.File(os.path.join(root, "nyuv2",
+                                    "nyu_depth_v2_labeled.mat")) as f:
+            arrays = [f[k] for k in ("images", "depths", "rawDepths",
+                                     "labels", "instances")]
+            for i in range(arrays[0].shape[0]):
+                t0 = time.perf_counter()
+                nbytes = sum(np.asarray(a[i]).nbytes for a in arrays)
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+        report.update({f"hdf5{fmt}_frame_ms": frame_ms,
+                       "hdf5_frame_bytes": nbytes})
+    for fmt, what in (("", "earliest"), ("_latest", "latest")):
+        log(f"[prepare] nyuv2 .mat (3 frames 640x480) and hypersim (2 "
+            f"frames 256x192, progressive JPEG), libver '{what}', prepared "
+            f"without h5py and PIL in {report[f'nyuv2{fmt}_prepare_s']:.2f} "
+            f"/ {report[f'hypersim{fmt}_prepare_s']:.2f} s (host); "
+            f"{report[f'nyuv2{fmt}_files']} + "
+            f"{report[f'hypersim{fmt}_files']} files equal to "
+            f"expected.json; HDF5 read of one frame's five arrays "
+            f"({nbytes} bytes): "
+            f"{', '.join(f'{t:.2f}' for t in report[f'hdf5{fmt}_frame_ms'])}"
+            f" ms")
     return report
 
 

@@ -26,9 +26,8 @@ choice per batch size.
 registries and applies its model rules (one modality forces
 `encoder_fusion='none'`, a decoder other than 'emsanet' trains without
 multiscale supervision). `validate_train_for_port` refuses batch sizes
-that do not divide over `n_devices` ranks, with `main.py`'s message; the
-trainer refuses wandb logging with a "not ported yet" error. Neither
-falls back to another path.
+that do not divide over `n_devices` ranks, with `main.py`'s message.
+Neither falls back to another path.
 """
 
 from __future__ import annotations

@@ -368,6 +368,42 @@ int png_unfilter(const uint8_t* data, int64_t height, int64_t stride,
   return 0;
 }
 
+// h5py's LZF filter (liblzf's lzf_decompress): literal runs of 1-32
+// bytes and back references of 3-264 bytes up to 8 KiB back. Returns the
+// bytes written to `out`, or -1 for a stream that overruns either buffer
+// or refers before the output's start.
+int64_t lzf_decompress(const uint8_t* in, int64_t in_len, uint8_t* out,
+                       int64_t out_len) {
+  const uint8_t* ip = in;
+  const uint8_t* const in_end = in + in_len;
+  uint8_t* op = out;
+  uint8_t* const out_end = out + out_len;
+  while (ip < in_end) {
+    unsigned ctrl = *ip++;
+    if (ctrl < (1u << 5)) {
+      ++ctrl;
+      if (ctrl > (size_t)(out_end - op) || ctrl > (size_t)(in_end - ip))
+        return -1;
+      std::memcpy(op, ip, ctrl);
+      op += ctrl;
+      ip += ctrl;
+      continue;
+    }
+    unsigned len = ctrl >> 5;
+    if (ip >= in_end) return -1;
+    if (len == 7) {
+      len += *ip++;
+      if (ip >= in_end) return -1;
+    }
+    const int64_t back = (int64_t)((ctrl & 0x1f) << 8) + *ip++ + 1;
+    len += 2;
+    if (back > op - out || len > (size_t)(out_end - op)) return -1;
+    const uint8_t* ref = op - back;
+    for (unsigned i = 0; i < len; ++i) *op++ = *ref++;  // may overlap
+  }
+  return op - out;
+}
+
 }  // extern "C"
 
 #include "jpeg_baseline.h"

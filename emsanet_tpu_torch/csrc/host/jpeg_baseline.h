@@ -1,14 +1,21 @@
-// JPEG decoding (ITU T.81 sequential and progressive DCT, Huffman,
-// 8-bit), included by emsanet_native.cpp; entry point `jpeg_decode`
-// (plain C).
+// JPEG decoding (ITU T.81 sequential, progressive and lossless, Huffman
+// and arithmetic coding, 8-bit), included by emsanet_native.cpp; entry
+// point `jpeg_decode` (plain C).
 //
 // It returns the pixels PIL gives for the same file: Pillow decodes with
-// libjpeg-turbo at its defaults, so each step is libjpeg-turbo's:
+// libjpeg-turbo 3.x at its defaults, so each step is libjpeg-turbo's:
 //   - progressive scans (jdphuff.c): DC first and refinement scans, AC
 //     first scans with end-of-band runs, AC refinement scans with their
-//     correction bits; libjpeg-turbo smooths the blocks of a file whose
-//     scans leave coefficient bits unknown (jdcoefct.c smoothing_ok):
-//     such a file is refused with kSmoothing;
+//     correction bits;
+//   - arithmetic coding (jdarith.c, `jpeg_arith.h`): sequential and
+//     progressive, DAC conditioning, restarts;
+//   - lossless files (jdlhuff.c, jdlossls.c, `jpeg_lossless.h`):
+//     predictors 1-7, the point transform, restarts of whole MCU rows;
+//   - block smoothing (jdcoefct.c decompress_smooth_data, libjpeg-turbo
+//     2.1+): where a progressive file's scans leave some of the first 9
+//     AC coefficients' bits unknown, each block's zero ones among them
+//     are estimated from the DC values of its 5x5 neighbourhood (and
+//     the DC too, where no AC data came at all);
 //   - the `islow` integer IDCT (jidctint.c: 13-bit constants, 2 extra
 //     bits after the column pass, the post-IDCT range-limit table);
 //   - "fancy" chroma upsampling (jdsample.c): h2v1 and h2v2 triangle
@@ -17,22 +24,27 @@
 //     rows above the first and below the last real row repeat it;
 //   - YCbCr -> RGB by libjpeg's 16-bit fixed-point tables (jdcolor.c),
 //     and YCCK -> CMYK (ycck_cmyk_convert) by the same tables.
-// Handled: SOF0, SOF1 and SOF2 at 8-bit precision, 1, 3 or 4
+// Handled: SOF0-3, SOF9 and SOF10 at 8-bit precision, 1, 3 or 4
 // components, interleaved and single-component scans (several scans per
 // frame; a single-component scan covers the component's own blocks, not
-// the MCU-padded ones), any sampling factors, 8- and 16-bit quantization
-// tables, restart intervals, partial edge MCUs. The colour space is
-// libjpeg's guess: of 3 components JFIF -> YCbCr, Adobe transform 0 ->
-// RGB, else the component ids ('R','G','B' -> RGB); of 4 components
-// Adobe transform 0 or no Adobe marker -> CMYK, any other transform ->
-// YCCK. Four components are returned as PIL's mode CMYK gives them:
-// inverted (PIL's raw mode "CMYK;I"). Lossless, arithmetic-coded and
-// 12-bit files are refused by the caller (`datasets/jpeg.py`) before
-// they get here.
+// the MCU-padded ones), any sampling factors (a lossless file's
+// subsampled components upsampled by replication, as libjpeg-turbo does
+// with its 1x1 data units), 8-
+// and 16-bit quantization tables, restart intervals, partial edge MCUs.
+// The colour space is libjpeg's guess: of 3 components JFIF -> YCbCr,
+// Adobe transform 0 -> RGB, else the component ids ('R','G','B' -> RGB;
+// a lossless file -> RGB); of 4 components Adobe transform 0 or no Adobe
+// marker -> CMYK, any other transform -> YCCK. Four components are
+// returned as PIL's mode CMYK gives them: inverted (PIL's raw mode
+// "CMYK;I"). 12-bit and hierarchical files are refused by the caller
+// (`datasets/jpeg.py`), as PIL refuses them.
 
 #include <cstdint>
 #include <cstring>
 #include <vector>
+
+#include "jpeg_arith.h"
+#include "jpeg_lossless.h"
 
 namespace jpeg {
 
@@ -45,8 +57,8 @@ enum Error {
   kBadTable = 5,
   kNoFrame = 6,
   kBadScan = 7,
-  kSizes = 8,      // the frame differs from the caller's sizes
-  kSmoothing = 9,  // libjpeg-turbo would smooth the blocks
+  kSizes = 8,         // the frame differs from the caller's sizes
+  kLosslessColour = 10,   // a lossless file in YCbCr or YCCK
 };
 
 static const int kNatural[64 + 16] = {  // zigzag index -> natural index
@@ -98,12 +110,17 @@ struct Component {
   int id, h, v, tq;
   int td = 0, ta = 0;   // the scan's tables
   int dc_pred = 0;
-  int bw = 0, bh = 0;   // blocks per row and column (MCU-padded)
+  int bw = 0, bh = 0;   // data units (blocks; lossless: samples) per row
+                        // and column, MCU-padded
   int dw = 0, dh = 0;   // the downsampled size (libjpeg's)
   std::vector<int16_t> coef;  // (bh, bw, 64) natural order
   // progressive: the lowest bit known of each coefficient (zigzag
   // order), -1 where no scan has coded it (libjpeg's coef_bits)
   int coef_bits[64];
+  // lossless: the differences of the scan (bh, bw: MCU-padded, in
+  // samples), then the samples (dh, dw)
+  std::vector<int32_t> diff;
+  std::vector<uint8_t> samples;
 };
 
 struct BitReader {
@@ -415,7 +432,7 @@ static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
 // plane: (ph, pw) samples of which (dh, dw) are real; out: (H, W) at
 // the full resolution. hx, vx: the integer expansion factors.
 static void upsample(const uint8_t* plane, int pw, int dw, int dh, int hx,
-                     int vx, uint8_t* out, int W, int H) {
+                     int vx, uint8_t* out, int W, int H, bool fancy = true) {
   auto row = [&](int y) {  // context rows repeat the first / last real row
     y = y < 0 ? 0 : (y >= dh ? dh - 1 : y);
     return plane + (size_t)y * pw;
@@ -425,7 +442,7 @@ static void upsample(const uint8_t* plane, int pw, int dw, int dh, int hx,
     return;
   }
   std::vector<uint8_t> line(2 * (size_t)dw + 2);
-  if (hx == 2 && vx == 1 && dw > 2) {  // h2v1_fancy_upsample
+  if (fancy && hx == 2 && vx == 1 && dw > 2) {  // h2v1_fancy_upsample
     for (int y = 0; y < H; ++y) {
       const uint8_t* in = row(y);
       uint8_t* o = line.data();
@@ -444,7 +461,7 @@ static void upsample(const uint8_t* plane, int pw, int dw, int dh, int hx,
     }
     return;
   }
-  if (hx == 1 && vx == 2) {  // h1v2_fancy_upsample
+  if (fancy && hx == 1 && vx == 2) {  // h1v2_fancy_upsample
     for (int y = 0; y < H; ++y) {
       const int inrow = y >> 1;
       const bool below = y & 1;
@@ -457,7 +474,7 @@ static void upsample(const uint8_t* plane, int pw, int dw, int dh, int hx,
     }
     return;
   }
-  if (hx == 2 && vx == 2 && dw > 2) {  // h2v2_fancy_upsample
+  if (fancy && hx == 2 && vx == 2 && dw > 2) {  // h2v2_fancy_upsample
     for (int y = 0; y < H; ++y) {
       const int inrow = y >> 1;
       const uint8_t* in0 = row(inrow);
@@ -492,6 +509,28 @@ static void upsample(const uint8_t* plane, int pw, int dw, int dh, int hx,
   }
 }
 
+// ---- block smoothing (libjpeg-turbo jdcoefct.c) ---------------------------
+
+// zigzag coefficients 1..9 in natural order (Q01, Q10, Q20, Q11, Q02,
+// Q03, Q12, Q21, Q30)
+static const int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+static const int kSavedCoefs = 10;
+
+// the estimate of one coefficient (decompress_smooth_data): rounded,
+// clipped below 2^Al where Al > 0
+static inline int16_t smooth_pred(int64_t q, int64_t num, int al) {
+  int64_t pred;
+  if (num >= 0) {
+    pred = ((q << 7) + num) / (q << 8);
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  } else {
+    pred = ((q << 7) - num) / (q << 8);
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    pred = -pred;
+  }
+  return (int16_t)pred;
+}
+
 // ---- the decoder ----------------------------------------------------------
 
 struct Decoder {
@@ -500,10 +539,11 @@ struct Decoder {
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
+  ArithConditioning cond;
   std::vector<Component> comps;
   int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   int restart_interval = 0;
-  bool progressive = false;
+  bool progressive = false, arithmetic = false, lossless = false;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
 
@@ -537,14 +577,18 @@ struct Decoder {
       hmax = c.h > hmax ? c.h : hmax;
       vmax = c.v > vmax ? c.v : vmax;
     }
-    mcux = (width + 8 * hmax - 1) / (8 * hmax);
-    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    const int unit = lossless ? 1 : 8;  // a data unit's side in samples
+    mcux = (width + unit * hmax - 1) / (unit * hmax);
+    mcuy = (height + unit * vmax - 1) / (unit * vmax);
     for (Component& c : comps) {
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
       c.dw = (int)(((int64_t)width * c.h + hmax - 1) / hmax);
       c.dh = (int)(((int64_t)height * c.v + vmax - 1) / vmax);
-      c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      if (lossless)  // one sample a data unit
+        c.samples.assign((size_t)c.dw * c.dh, 0);
+      else
+        c.coef.assign((size_t)c.bw * c.bh * 64, 0);
       for (int& b : c.coef_bits) b = -1;
     }
     return kOk;
@@ -579,6 +623,50 @@ struct Decoder {
     return kOk;
   }
 
+  // DAC (jdmarker.c get_dac): Tc Tb, then L and U of a DC table or K of
+  // an AC one
+  int conditioning(size_t end) {
+    for (; end - pos >= 2; pos += 2) {
+      const int tc = data[pos] >> 4, tb = data[pos] & 15, val = data[pos + 1];
+      if (tc > 1) return kBadTable;
+      if (tc) {
+        cond.ac_k[tb] = (uint8_t)val;
+      } else {
+        cond.dc_l[tb] = (uint8_t)(val & 15);
+        cond.dc_u[tb] = (uint8_t)(val >> 4);
+        if (cond.dc_l[tb] > cond.dc_u[tb]) return kBadTable;
+      }
+    }
+    return pos == end ? kOk : kBadTable;
+  }
+
+  // the position after the scan's entropy-coded data: its marker
+  void skip_to_marker(size_t p) {
+    while (p + 1 < size &&
+           !(data[p] == 0xFF && data[p + 1] != 0x00 &&
+             !(data[p + 1] >= 0xD0 && data[p + 1] <= 0xD7)))
+      ++p;
+    pos = p;
+  }
+
+  // an arithmetic scan's restart: past the next marker, which must be RSTn
+  bool arith_restart(ArithDecoder* ar) {
+    size_t p = ar->pos;
+    for (;;) {
+      while (p < size && data[p] != 0xFF) ++p;
+      size_t q = p + 1;
+      while (q < size && data[q] == 0xFF) ++q;
+      if (q >= size) return false;
+      if (data[q] == 0x00) {  // a stuffed 0xFF data byte
+        p = q + 1;
+        continue;
+      }
+      ar->pos = q + 1;
+      ar->at_marker = false;
+      return data[q] >= 0xD0 && data[q] <= 0xD7;
+    }
+  }
+
   int scan(size_t end) {
     if (comps.empty()) return kNoFrame;
     const int ns = data[pos++];
@@ -594,12 +682,16 @@ struct Decoder {
       if (!c) return kBadScan;
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3 || !qt_defined[c->tq]) return kBadTable;
+      // Huffman tables 0-3; arithmetic conditioning tables 0-15
+      if ((!arithmetic && (c->td > 3 || c->ta > 3)) ||
+          (!lossless && !qt_defined[c->tq]))
+        return kBadTable;
       sc.push_back(c);
     }
     const int ss = data[pos], se = data[pos + 1];
     const int ah = data[pos + 2] >> 4, al = data[pos + 2] & 15;
     pos += 3;
+    if (lossless) return lossless_scan(sc, ss, se, ah, al, end);
     // the scan's kind, its parameters as libjpeg checks them (jdinput.c,
     // jdphuff.c start_pass_phuff_decoder) and the tables it needs
     enum { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine } kind;
@@ -616,17 +708,61 @@ struct Decoder {
         for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
     }
     for (Component* c : sc) {
-      if ((kind == kSequential || kind == kDcFirst) && !dc[c->td].defined)
-        return kBadTable;
-      if ((kind == kSequential || kind >= kAcFirst) && !ac[c->ta].defined)
-        return kBadTable;
+      if (!arithmetic) {
+        if ((kind == kSequential || kind == kDcFirst) && !dc[c->td].defined)
+          return kBadTable;
+        if ((kind == kSequential || kind >= kAcFirst) && !ac[c->ta].defined)
+          return kBadTable;
+      }
       c->dc_pred = 0;
     }
     int eobrun = 0;
     BitReader br{data, size, end};
+    ArithDecoder ar;
+    ar.data = data;
+    ar.size = size;
+    ar.pos = end;
+    // jdarith.c start_pass / process_restart: the statistics of the
+    // scan's tables, the DC contexts and the registers start anew
+    auto arith_start = [&]() {
+      for (int i = 0; i < ns; ++i) {
+        if (!progressive || (ss == 0 && ah == 0)) {
+          std::memset(ar.dc_stats[sc[i]->td], 0, kDcStatBins);
+          ar.dc_context[i] = 0;
+          sc[i]->dc_pred = 0;
+        }
+        if (!progressive || ss)
+          std::memset(ar.ac_stats[sc[i]->ta], 0, kAcStatBins);
+      }
+      ar.reset_registers();
+      ar.broken = false;
+    };
+    if (arithmetic) arith_start();
 
-    // one block of the scan
-    auto block = [&](Component* c, int16_t* blk) {
+    // one block of the scan; ci: the component's place in the scan
+    auto block = [&](Component* c, int ci, int16_t* blk) {
+      if (arithmetic) {
+        int v;
+        switch (kind) {
+          case kSequential:
+            if (!ar.dc_diff(c->td, ci, cond, &v)) return false;
+            c->dc_pred = (c->dc_pred + v) & 0xFFFF;
+            blk[0] = (int16_t)c->dc_pred;
+            return ar.ac_first(c->ta, 1, 63, 0, cond, blk, kNatural);
+          case kDcFirst:
+            if (!ar.dc_diff(c->td, ci, cond, &v)) return false;
+            c->dc_pred = (c->dc_pred + v) & 0xFFFF;
+            blk[0] = (int16_t)((unsigned)c->dc_pred << al);
+            return true;
+          case kDcRefine:
+            if (ar.decode(&ar.fixed_bin)) blk[0] |= (int16_t)(1 << al);
+            return true;
+          case kAcFirst:
+            return ar.ac_first(c->ta, ss, se, al, cond, blk, kNatural);
+          default:
+            return ar.ac_refine(c->ta, ss, se, al, blk, kNatural);
+        }
+      }
       switch (kind) {
         case kSequential:
           return decode_block(&br, &dc[c->td], &ac[c->ta], &c->dc_pred, blk);
@@ -656,50 +792,241 @@ struct Decoder {
     for (int64_t m = 0; m < total; ++m) {
       if (restart_interval) {
         if (todo == 0) {
-          if (!br.restart()) return kBadMarker;
-          for (Component* c : sc) c->dc_pred = 0;
-          eobrun = 0;
+          if (arithmetic) {
+            if (!arith_restart(&ar)) return kBadMarker;
+            arith_start();
+          } else {
+            if (!br.restart()) return kBadMarker;
+            for (Component* c : sc) c->dc_pred = 0;
+            eobrun = 0;
+          }
           todo = restart_interval;
         }
         --todo;
       }
+      // a bad arithmetic code leaves the rest of the restart interval
+      // undecoded (jdarith.c: ct = -1 until the next restart)
+      if (ar.broken) continue;
       const int my = (int)(m / nx), mx = (int)(m % nx);
+      bool ok = true;
       if (ns == 1) {
         Component* c = sc[0];
-        if (!block(c, c->coef.data() + ((size_t)my * c->bw + mx) * 64))
-          return kBadHuffman;
+        ok = block(c, 0, c->coef.data() + ((size_t)my * c->bw + mx) * 64);
       } else {
-        for (Component* c : sc) {
-          for (int by = 0; by < c->v; ++by)
-            for (int bx = 0; bx < c->h; ++bx) {
+        for (int i = 0; i < ns && ok; ++i) {
+          Component* c = sc[i];
+          for (int by = 0; by < c->v && ok; ++by)
+            for (int bx = 0; bx < c->h && ok; ++bx) {
               const size_t b = (size_t)(my * c->v + by) * c->bw
                                + (size_t)mx * c->h + bx;
-              if (!block(c, c->coef.data() + b * 64)) return kBadHuffman;
+              ok = block(c, i, c->coef.data() + b * 64);
             }
         }
       }
+      if (!ok) {
+        if (!arithmetic) return kBadHuffman;
+        ar.broken = true;
+      }
     }
-    // step to the byte after the scan's entropy-coded data: its marker
-    size_t p = br.pos;
-    while (p + 1 < size &&
-           !(data[p] == 0xFF && data[p + 1] != 0x00 &&
-             !(data[p + 1] >= 0xD0 && data[p + 1] <= 0xD7)))
-      ++p;
-    pos = p;
+    skip_to_marker(arithmetic ? ar.pos : br.pos);
     return kOk;
   }
 
-  // libjpeg-turbo smooths the blocks (jdcoefct.c smoothing_ok: every
-  // component's DC partly known, some bits of the first AC coefficients
-  // not; SAVED_COEFS is 10 since libjpeg-turbo 2.1, 6 before)
-  bool smoothed() const {
+  // a lossless scan (jdlhuff.c, jddiffct.c): one Huffman-coded
+  // difference a sample (category 16: 32768); an interleaved scan's MCU
+  // holds h x v samples of each component, a single-component scan's one
+  // sample of its real grid; then the prediction undone per component
+  // (`lossless_undifference`)
+  int lossless_scan(const std::vector<Component*>& sc, int predictor, int se,
+                    int ah, int pt, size_t end) {
+    if (arithmetic) return kUnsupported;
+    if (predictor < 1 || predictor > 7 || se != 0 || ah != 0 || pt > 7)
+      return kBadScan;
+    const bool single = sc.size() == 1;
+    const int nx = single ? sc[0]->dw : mcux, ny = single ? sc[0]->dh : mcuy;
+    if (restart_interval % nx) return kUnsupported;  // JERR_BAD_RESTART
+    for (Component* c : sc) {
+      if (!dc[c->td].defined) return kBadTable;
+      c->diff.assign((size_t)c->bw * c->bh, 0);
+    }
+    BitReader br{data, size, end};
+    int64_t todo = restart_interval;
+    for (int my = 0; my < ny; ++my)
+      for (int mx = 0; mx < nx; ++mx) {
+        if (restart_interval) {
+          if (todo == 0) {
+            if (!br.restart()) return kBadMarker;
+            todo = restart_interval;
+          }
+          --todo;
+        }
+        for (Component* c : sc) {
+          const int h = single ? 1 : c->h, v = single ? 1 : c->v;
+          const size_t stride = (size_t)c->bw;
+          for (int y = 0; y < v; ++y)
+            for (int x = 0; x < h; ++x) {
+              const int s = decode_huffman(&br, &dc[c->td]);
+              if (s < 0 || s > 16) return kBadHuffman;
+              c->diff[(size_t)(my * v + y) * stride + mx * h + x] =
+                  s == 16 ? 32768 : (s ? extend(br.get(s), s) : 0);
+            }
+        }
+      }
+    const int restart_rows = restart_interval / nx;  // MCU rows
+    for (Component* c : sc) {
+      const int v = single ? 1 : c->v;
+      std::vector<uint8_t> first((size_t)c->dh);
+      for (int y = 0; y < c->dh; ++y)
+        first[y] = y == 0 || (restart_rows && y % v == 0 &&
+                              (y / v) % restart_rows == 0);
+      lossless_undifference(c->diff.data(), (size_t)c->bw,
+                            c->samples.data(), c->dw, c->dh, predictor, pt,
+                            first);
+      c->diff = std::vector<int32_t>();
+    }
+    skip_to_marker(br.pos);
+    return kOk;
+  }
+
+  // jdcoefct.c smoothing_ok: progressive, every component's DC partly
+  // known and its quantizers of the DC and the first 9 AC coefficients
+  // nonzero, and some bits of those AC coefficients unknown
+  bool smoothing_ok() const {
     if (!progressive) return false;
-    for (const Component& c : comps)
+    bool useful = false;
+    for (const Component& c : comps) {
+      for (int k = 0; k < kSavedCoefs; ++k)
+        if (qt[c.tq][kSmoothPos[k]] == 0) return false;
       if (c.coef_bits[0] < 0) return false;
-    for (const Component& c : comps)
-      for (int k = 1; k < 10; ++k)
-        if (c.coef_bits[k] != 0) return true;
-    return false;
+      for (int k = 1; k < kSavedCoefs; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
+  }
+
+  // decompress_smooth_data for one component: the blocks of its real
+  // rows and columns, each with its zero coefficients among the first 9
+  // AC ones that are not known exactly estimated from the DC values of
+  // the 5x5 blocks around it, IDCT'd into `plane`. The neighbour rows
+  // follow libjpeg-turbo's iMCU-row bookkeeping, the padded rows of the
+  // coefficient array included.
+  void smooth_component(const Component& c, uint8_t* plane, int pw) const {
+    const int* bits = c.coef_bits;
+    const bool change_dc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 &&
+                           bits[4] == -1 && bits[5] == -1 && bits[6] == -1 &&
+                           bits[7] == -1 && bits[8] == -1 && bits[9] == -1;
+    const uint16_t* qv = qt[c.tq];
+    const int64_t Q00 = qv[0], Q01 = qv[1], Q10 = qv[8], Q20 = qv[16],
+                  Q11 = qv[9], Q02 = qv[2], Q03 = qv[3], Q12 = qv[10],
+                  Q21 = qv[17], Q30 = qv[24];
+    const int width_blocks = (c.dw + 7) / 8, height_blocks = (c.dh + 7) / 8;
+    const int last_col = width_blocks - 1;
+    const int total_rows = mcuy;  // iMCU rows
+    int16_t ws[64];
+    auto dcat = [&](int row, int col) -> int {
+      return c.coef[((size_t)row * c.bw + col) * 64];
+    };
+    for (int imcu = 0; imcu < total_rows; ++imcu) {
+      int block_rows = c.v;
+      if (imcu == total_rows - 1) {
+        block_rows = height_blocks % c.v;
+        if (block_rows == 0) block_rows = c.v;
+      }
+      const int image_rows = block_rows * total_rows;
+      for (int br = 0; br < block_rows; ++br) {
+        const int image_row = imcu * block_rows + br;
+        const int r = imcu * c.v + br;  // the block row in the array
+        const int prev = image_row > 0 ? r - 1 : r;
+        const int prev2 = image_row > 1 ? r - 2 : prev;
+        const int next = image_row < image_rows - 1 ? r + 1 : r;
+        const int next2 = image_row < image_rows - 2 ? r + 2 : next;
+        const int rows[5] = {prev2, prev, r, next, next2};
+        // DC[i][j]: row i of the window, column j (DC01..DC25)
+        int DC[5][5];
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 5; ++j) DC[i][j] = dcat(rows[i], 0);
+        for (int col = 0; col <= last_col; ++col) {
+          std::memcpy(ws, &c.coef[((size_t)r * c.bw + col) * 64], sizeof ws);
+          if (col == 0 && col < last_col)
+            for (int i = 0; i < 5; ++i) DC[i][3] = DC[i][4] = dcat(rows[i], 1);
+          if (col + 1 < last_col)
+            for (int i = 0; i < 5; ++i) DC[i][4] = dcat(rows[i], col + 2);
+#define D(n) ((int64_t)DC[((n)-1) / 5][((n)-1) % 5])
+          int al;
+          if ((al = bits[1]) != 0 && ws[1] == 0) {
+            const int64_t num = Q00 * (change_dc ?
+                (-D(1) - D(2) + D(4) + D(5) - 3 * D(6) + 13 * D(7) -
+                 13 * D(9) + 3 * D(10) - 3 * D(11) + 38 * D(12) -
+                 38 * D(14) + 3 * D(15) - 3 * D(16) + 13 * D(17) -
+                 13 * D(19) + 3 * D(20) - D(21) - D(22) + D(24) + D(25)) :
+                (-7 * D(11) + 50 * D(12) - 50 * D(14) + 7 * D(15)));
+            ws[1] = smooth_pred(Q01, num, al);
+          }
+          if ((al = bits[2]) != 0 && ws[8] == 0) {
+            const int64_t num = Q00 * (change_dc ?
+                (-D(1) - 3 * D(2) - 3 * D(3) - 3 * D(4) - D(5) - D(6) +
+                 13 * D(7) + 38 * D(8) + 13 * D(9) - D(10) + D(16) -
+                 13 * D(17) - 38 * D(18) - 13 * D(19) + D(20) + D(21) +
+                 3 * D(22) + 3 * D(23) + 3 * D(24) + D(25)) :
+                (-7 * D(3) + 50 * D(8) - 50 * D(18) + 7 * D(23)));
+            ws[8] = smooth_pred(Q10, num, al);
+          }
+          if ((al = bits[3]) != 0 && ws[16] == 0) {
+            const int64_t num = Q00 * (change_dc ?
+                (D(3) + 2 * D(7) + 7 * D(8) + 2 * D(9) - 5 * D(12) -
+                 14 * D(13) - 5 * D(14) + 2 * D(17) + 7 * D(18) +
+                 2 * D(19) + D(23)) :
+                (-D(3) + 13 * D(8) - 24 * D(13) + 13 * D(18) - D(23)));
+            ws[16] = smooth_pred(Q20, num, al);
+          }
+          if ((al = bits[4]) != 0 && ws[9] == 0) {
+            const int64_t num = Q00 * (change_dc ?
+                (-D(1) + D(5) + 9 * D(7) - 9 * D(9) - 9 * D(17) +
+                 9 * D(19) + D(21) - D(25)) :
+                (D(10) + D(16) - 10 * D(17) + 10 * D(19) - D(2) - D(20) +
+                 D(22) - D(24) + D(4) - D(6) + 10 * D(7) - 10 * D(9)));
+            ws[9] = smooth_pred(Q11, num, al);
+          }
+          if ((al = bits[5]) != 0 && ws[2] == 0) {
+            const int64_t num = Q00 * (change_dc ?
+                (2 * D(7) - 5 * D(8) + 2 * D(9) + D(11) + 7 * D(12) -
+                 14 * D(13) + 7 * D(14) + D(15) + 2 * D(17) - 5 * D(18) +
+                 2 * D(19)) :
+                (-D(11) + 13 * D(12) - 24 * D(13) + 13 * D(14) - D(15)));
+            ws[2] = smooth_pred(Q02, num, al);
+          }
+          if (change_dc) {
+            if ((al = bits[6]) != 0 && ws[3] == 0)
+              ws[3] = smooth_pred(Q03, Q00 * (D(7) - D(9) + 2 * D(12) -
+                                              2 * D(14) + D(17) - D(19)), al);
+            if ((al = bits[7]) != 0 && ws[10] == 0)
+              ws[10] = smooth_pred(Q12, Q00 * (D(7) - 3 * D(8) + D(9) -
+                                               D(17) + 3 * D(18) - D(19)),
+                                   al);
+            if ((al = bits[8]) != 0 && ws[17] == 0)
+              ws[17] = smooth_pred(Q21, Q00 * (D(7) - D(9) - 3 * D(12) +
+                                               3 * D(14) + D(17) - D(19)),
+                                   al);
+            if ((al = bits[9]) != 0 && ws[24] == 0)
+              ws[24] = smooth_pred(Q30, Q00 * (D(7) + 2 * D(8) + D(9) -
+                                               D(17) - 2 * D(18) - D(19)),
+                                   al);
+            const int64_t num = Q00 *
+                (-2 * D(1) - 6 * D(2) - 8 * D(3) - 6 * D(4) - 2 * D(5) -
+                 6 * D(6) + 6 * D(7) + 42 * D(8) + 6 * D(9) - 6 * D(10) -
+                 8 * D(11) + 42 * D(12) + 152 * D(13) + 42 * D(14) -
+                 8 * D(15) - 6 * D(16) + 6 * D(17) + 42 * D(18) +
+                 6 * D(19) - 6 * D(20) - 2 * D(21) - 6 * D(22) -
+                 8 * D(23) - 6 * D(24) - 2 * D(25));
+            ws[0] = smooth_pred(Q00, num, 0);
+          }
+#undef D
+          idct_islow(ws, qv, plane + (size_t)r * 8 * pw + col * 8, pw);
+          for (int i = 0; i < 5; ++i)
+            for (int j = 0; j < 4; ++j) DC[i][j] = DC[i][j + 1];
+        }
+      }
+    }
   }
 
   // parse every marker up to EOI; entropy-coded data follows each SOS
@@ -722,20 +1049,23 @@ struct Decoder {
       if (len < 2 || pos + len - 2 > size) return kTruncated;
       const size_t end = pos + len - 2;
       int err = kOk;
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 ||
+          m == 0xCA) {
         if (frame_seen) return kUnsupported;
         frame_seen = true;
-        progressive = m == 0xC2;
+        progressive = m == 0xC2 || m == 0xCA;
+        arithmetic = m >= 0xC9;
+        lossless = m == 0xC3;
         err = frame(end);
       } else if ((m >= 0xC2 && m <= 0xCF) && m != 0xC4 && m != 0xC8 &&
                  m != 0xCC) {
-        return kUnsupported;  // lossless, hierarchical, arithmetic
+        return kUnsupported;  // hierarchical, arithmetic lossless
       } else if (m == 0xDB) {
         err = quant(end);
       } else if (m == 0xC4) {
         err = huffman(end);
       } else if (m == 0xCC) {
-        return kUnsupported;  // arithmetic conditioning
+        err = conditioning(end);
       } else if (m == 0xDD) {
         if (len != 4) return kBadMarker;
         restart_interval = u16();
@@ -760,13 +1090,33 @@ struct Decoder {
     return kOk;
   }
 
+  // libjpeg's guess of the colour transform (jdapimin.c
+  // default_decompress_parms): YCbCr of 3 components, YCCK of 4
+  bool transformed() const {
+    if (comps.size() == 3) {
+      if (jfif) return true;
+      if (adobe) return adobe_transform != 0;
+      // libjpeg-turbo assumes RGB for a lossless file
+      return !lossless &&
+             !(comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B');
+    }
+    return comps.size() == 4 && adobe && adobe_transform != 0;
+  }
+
   // the gray / RGB / CMYK pixels (H, W, n_out), n_out = 1, 3 or 4
   void render(uint8_t* out) {
     const int W = width, H = height;
     std::vector<std::vector<uint8_t>> full(comps.size());
     std::vector<uint8_t> plane;
+    const bool smooth = smoothing_ok();
     for (size_t ci = 0; ci < comps.size(); ++ci) {
       Component& c = comps[ci];
+      if (lossless) {  // 1x1 data units: libjpeg's box upsampling
+        full[ci].resize((size_t)W * H);
+        upsample(c.samples.data(), c.dw, c.dw, c.dh, hmax / c.h, vmax / c.v,
+                 full[ci].data(), W, H, false);
+        continue;
+      }
       const int pw = c.bw * 8, ph = c.bh * 8;
       plane.assign((size_t)pw * ph, 0);
       const uint16_t* q = qt[c.tq];
@@ -774,6 +1124,7 @@ struct Decoder {
         for (int bx = 0; bx < c.bw; ++bx)
           idct_islow(c.coef.data() + ((size_t)by * c.bw + bx) * 64, q,
                      plane.data() + (size_t)by * 8 * pw + bx * 8, pw);
+      if (smooth) smooth_component(c, plane.data(), pw);
       full[ci].resize((size_t)W * H);
       // libjpeg's integer expansion factors (jdsample.c)
       upsample(plane.data(), pw, c.dw, c.dh, hmax / c.h, vmax / c.v,
@@ -804,7 +1155,7 @@ struct Decoder {
       // libjpeg's CMYK (YCCK converted: C = 255 - (Y + Cr_r), ...), then
       // PIL's inversion: YCCK gives Y + Cr_r etc. clamped, and 255 - K
       const uint8_t* k = full[3].data();
-      const bool ycck = adobe && adobe_transform != 0;
+      const bool ycck = transformed();
       for (size_t i = 0; i < n; ++i) {
         uint8_t* o = out + 4 * i;
         if (ycck) {
@@ -821,14 +1172,7 @@ struct Decoder {
       }
       return;
     }
-    bool ycc;
-    if (jfif) {
-      ycc = true;
-    } else if (adobe) {
-      ycc = adobe_transform != 0;
-    } else {
-      ycc = !(comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B');
-    }
+    const bool ycc = transformed();
     if (!ycc) {
       for (size_t i = 0; i < n; ++i) {
         out[3 * i] = y[i];
@@ -863,7 +1207,9 @@ int jpeg_decode(const uint8_t* data, int64_t size, int width, int height,
   if (d.width != width || d.height != height ||
       (int)d.comps.size() != channels)
     return jpeg::kSizes;
-  if (d.smoothed()) return jpeg::kSmoothing;
+  // libjpeg-turbo converts no colour of a lossless file: PIL's RGB or
+  // CMYK of a YCbCr or YCCK one fails
+  if (d.lossless && d.transformed()) return jpeg::kLosslessColour;
   d.render(out);
   return 0;
 }

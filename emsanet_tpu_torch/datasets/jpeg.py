@@ -2,16 +2,20 @@
 preparation's reader.
 
 `read_jpeg(path)` returns what `np.asarray(PIL.Image.open(path))` returns
-for a baseline or progressive file: (h, w) uint8 for one component,
-(h, w, 3) uint8 RGB for three, (h, w, 4) uint8 CMYK for four (inverted,
-as PIL's mode CMYK holds them; YCCK converted). The frame header is read
-here; the entropy decoding, the IDCT, the chroma upsampling and the
-colour conversion run in the host library (`csrc/host/jpeg_baseline.h`,
-libjpeg-turbo's progressive decoding, integer IDCT, fancy upsampling and
-YCbCr tables, as Pillow decodes). Lossless, arithmetic-coded and 12-bit
-files, other component counts, and progressive files whose scans leave
-coefficient bits unknown (libjpeg-turbo smooths those) raise
-`NotPortedError` naming the file.
+for an 8-bit file of any coding PIL (libjpeg-turbo 3) decodes: baseline,
+extended and progressive Huffman, arithmetic-coded sequential and
+progressive, and lossless: (h, w) uint8 for one component, (h, w, 3)
+uint8 RGB for three, (h, w, 4) uint8 CMYK for four (inverted, as PIL's
+mode CMYK holds them; YCCK converted). The frame header is read here;
+the entropy decoding, the lossless prediction, the IDCT with
+libjpeg-turbo's block smoothing of partly coded progressive files, the
+chroma upsampling and the colour conversion run in the host library
+(`csrc/host/jpeg_baseline.h`, `jpeg_arith.h`, `jpeg_lossless.h`:
+libjpeg-turbo's integer IDCT, fancy upsampling and YCbCr tables, as
+Pillow decodes). 12-bit, hierarchical and arithmetic-coded lossless
+files, which PIL refuses too, and other component counts raise
+`NotPortedError` naming the file; a lossless file in YCbCr or YCCK
+raises ValueError, as PIL does.
 """
 
 from __future__ import annotations
@@ -25,8 +29,7 @@ from emsanet_tpu_torch import native
 from emsanet_tpu_torch.config import NotPortedError
 
 SOI = b"\xff\xd8\xff"
-_SOF_NAMES = {0xC3: "lossless",
-              0xC5: "differential sequential", 0xC6: "differential "
+_SOF_NAMES = {0xC5: "differential sequential", 0xC6: "differential "
               "progressive", 0xC7: "differential lossless",
               0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded "
               "progressive", 0xCB: "arithmetic-coded lossless",
@@ -37,8 +40,9 @@ _SOF_NAMES = {0xC3: "lossless",
 
 def frame_header(blob: bytes, name: str = "JPEG data"
                  ) -> Tuple[int, int, int]:
-    """(width, height, components) of a baseline, extended sequential or
-    progressive frame; raise `NotPortedError` for any other coding."""
+    """(width, height, components) of a baseline, extended sequential,
+    progressive or lossless frame, Huffman or arithmetic-coded; raise
+    `NotPortedError` for any other coding."""
     if not blob.startswith(SOI):
         raise ValueError(f"{name} is not a JPEG file")
     pos = 2
@@ -54,7 +58,7 @@ def frame_header(blob: bytes, name: str = "JPEG data"
             pos += 2
             continue
         (length,) = struct.unpack(">H", blob[pos + 2:pos + 4])
-        if marker in (0xC0, 0xC1, 0xC2):
+        if marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
             precision, height, width, n = struct.unpack(
                 ">BHHB", blob[pos + 4:pos + 10])
             if precision != 8:

@@ -1,8 +1,9 @@
 """ctypes bindings of the port's native host library.
 
 `csrc/host/emsanet_native.cpp`, a copy of the JAX package's host library
-plus the PNG reader's row unfiltering and the JPEG decoder (baseline and
-progressive, `csrc/host/jpeg_baseline.h`), is compiled at first use with the
+plus the PNG reader's row unfiltering, the JPEG decoder (every 8-bit
+coding PIL decodes, `csrc/host/jpeg_*.h`) and h5py's LZF filter, is
+compiled at first use with the
 JAX package's flags (`g++ -O3 -march=native -ffast-math -fPIC`, linked
 without `-ffast-math`: at link time it would pull in `crtfastmath.o`,
 which sets FTZ/DAZ for the whole process) into
@@ -29,7 +30,6 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from emsanet_tpu_torch.config import NotPortedError
 
 SOURCE = (Path(__file__).resolve().parent / "csrc" / "host"
           / "emsanet_native.cpp")
@@ -115,12 +115,13 @@ def get_lib() -> ctypes.CDLL:
             "hsv_jitter_u8": [u8p, c_i64, c_f, c_f, c_f, u8p],
             "png_unfilter": [u8p, c_i64, c_i64, c_int, u8p],
             "jpeg_decode": [u8p, c_i64, c_int, c_int, c_int, u8p],
+            "lzf_decompress": [u8p, c_i64, u8p, c_i64],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = (c_int if name in ("png_unfilter", "jpeg_decode")
-                          else None)
+                          else c_i64 if name == "lzf_decompress" else None)
         _lib = lib
         return lib
 
@@ -240,26 +241,38 @@ JPEG_ERRORS = {1: "truncated data", 2: "a bad or missing marker",
                3: "an unsupported coding", 4: "a bad Huffman code",
                5: "a bad table", 6: "no frame or scan", 7: "a bad scan header",
                8: "a frame unlike its header"}
-JPEG_SMOOTHED = 9
+JPEG_LOSSLESS_COLOUR = 10
 
 
 def jpeg_decode(blob: bytes, width: int, height: int,
                 channels: int) -> np.ndarray:
-    """The pixels of a baseline or progressive JPEG file whose frame
-    header gives `width`, `height` and `channels` (1, 3 or 4): (h, w),
-    (h, w, 3) RGB or (h, w, 4) CMYK uint8, as PIL decodes them. Raises
-    NotPortedError for a progressive file whose scans leave coefficient
-    bits unknown (libjpeg-turbo smooths its blocks), ValueError on a
-    malformed stream."""
+    """The pixels of an 8-bit JPEG file (sequential, progressive or
+    lossless; Huffman or arithmetic-coded) whose frame header gives
+    `width`, `height` and `channels` (1, 3 or 4): (h, w), (h, w, 3) RGB
+    or (h, w, 4) CMYK uint8, as PIL decodes them. Raises ValueError on
+    a malformed stream and on a lossless file in YCbCr or YCCK (PIL's
+    libjpeg-turbo converts no lossless colour)."""
     lib = get_lib()
     raw = np.frombuffer(blob, np.uint8)
     out = np.empty((height, width, channels), np.uint8)
     err = lib.jpeg_decode(_ptr(raw, ctypes.c_uint8), raw.size, width,
                           height, channels, _ptr(out, ctypes.c_uint8))
-    if err == JPEG_SMOOTHED:
-        raise NotPortedError("progressive JPEG files whose scans leave "
-                             "coefficient bits unknown (libjpeg-turbo "
-                             "smooths their blocks)")
+    if err == JPEG_LOSSLESS_COLOUR:
+        raise ValueError("a lossless file in YCbCr or YCCK, "
+                         "whose colours libjpeg-turbo does not convert")
     if err:
         raise ValueError(f"JPEG data: {JPEG_ERRORS.get(err, err)}")
     return out[..., 0] if channels == 1 else out
+
+
+def lzf_decompress(data: bytes, size: int) -> bytes:
+    """h5py's LZF filter undone: `data` inflated to at most `size`
+    bytes (the chunk's). Raises ValueError on a corrupt stream."""
+    lib = get_lib()
+    raw = np.frombuffer(data, np.uint8)
+    out = np.empty(size, np.uint8)
+    n = lib.lzf_decompress(_ptr(raw, ctypes.c_uint8), raw.size,
+                           _ptr(out, ctypes.c_uint8), size)
+    if n < 0:
+        raise ValueError("corrupt LZF data")
+    return out[:n].tobytes()

@@ -9,8 +9,9 @@ same subcommands, flags and layout, and files whose decoded contents
 equal that tool's. It runs on the host without an image library and
 without h5py: every image is written by `datasets/png.py::write_png`,
 PNG and JPEG inputs are read by the port's own readers (`datasets/
-png.py`, `datasets/jpeg.py`: baseline, progressive and CMYK JPEG
-decoded as PIL decodes them), HDF5 files by `datasets/hdf5.py`, and
+png.py`, `datasets/jpeg.py`: every 8-bit JPEG coding PIL decodes,
+decoded as PIL decodes it), HDF5 files of every libver h5py writes by
+`datasets/hdf5.py`, and
 PIL's BILINEAR and NEAREST resizes are `imaging.resize_bilinear_u8` and
 `imaging.resize_nearest`.
 

@@ -57,9 +57,11 @@ replays the run's `argsv.txt` with its `checkpoints/ckpt_resume.pt`.
 backward pass (`torch.utils.checkpoint`; the BatchNorms' running
 statistics update once). `--hostname` and `--notes` go into args.json;
 `--debug` and `--disable-progress-bars` are recorded and change
-nothing (the trainer prints one line per epoch). Refused, with an
-error: wandb logging. It runs on the card unless `--device cpu` is
-given, and raises without one.
+nothing (the trainer prints one line per epoch). `--wandb-mode online|
+offline` logs to wandb as `main.py` does (`start_wandb`: imported only
+then; if it is missing or fails to start, one line says so and the run
+goes on). It runs on the card unless `--device cpu` is given, and
+raises without one.
 
 Data parallel (`main.py:166-223`, `parallel/mesh.py`): `--n-devices N`
 spawns N ranks, one card each over NCCL (`--device cpu`: N CPU ranks
@@ -112,7 +114,6 @@ from emsanet_tpu_torch.config import (
     DataConfig,
     EMSANetConfig,
     ModelConfig,
-    NotPortedError,
     TrainConfig,
     best_head_decode_fusion,
     validate_train_for_port,
@@ -457,8 +458,6 @@ def parse_args(argv: Optional[Sequence[str]] = None
 def config_from_args(a: argparse.Namespace) -> EMSANetConfig:
     """The validated configuration of `build_parser`'s flags (the
     inference scripts parse them too, beside their own)."""
-    if a.wandb_mode != "disabled":
-        raise NotPortedError("not ported yet: wandb logging")
     model = model_config_from_args(a)
     data = DataConfig(
         dataset=a.dataset, dataset_path=a.dataset_path, split=a.split,
@@ -714,6 +713,43 @@ def make_run_dir(cfg: EMSANetConfig, argv: Sequence[str]) -> str:
     return run_dir
 
 
+def wandb_config(cfg: EMSANetConfig, a: argparse.Namespace
+                 ) -> Dict[str, Any]:
+    """The run's configuration as `main.py` hands it to `wandb.init`
+    (the JAX package's `cfg.to_dict()`): the port's sections, with the
+    two model fields it keeps no copy of (the deprecated shared
+    `encoder_decoder_fusion`, which the JAX parser spreads over the
+    tasks and leaves at its default, and `--no-pretrained-backbone`),
+    less the port's own `train.debug` (the JAX package keeps `--debug`
+    on its namespace)."""
+    out = dataclasses.asdict(cfg)
+    out["model"]["encoder_decoder_fusion"] = "add-rgb"
+    out["model"]["no_pretrained_backbone"] = bool(a.no_pretrained_backbone)
+    out["train"].pop("debug", None)
+    return out
+
+
+def start_wandb(a: argparse.Namespace, cfg: EMSANetConfig, run_dir: str):
+    """`main.py`'s optional wandb: None with `--wandb-mode disabled`;
+    else `wandb` imported here, `wandb.init(project=..., mode=...,
+    config=wandb_config(...), dir=run_dir)`, and the module returned
+    for `wandb.log`. Any exception of the import or the init prints
+    `[emsanet-tpu] wandb unavailable: <error>` and gives None: the run
+    trains on without it."""
+    if a.wandb_mode == "disabled":
+        return None
+    try:
+        import wandb
+
+        wandb.init(project=a.wandb_name or a.wandb_project,
+                   mode=a.wandb_mode, config=wandb_config(cfg, a),
+                   dir=run_dir)
+    except Exception as e:  # wandb is optional, as in main.py
+        print(f"[emsanet-tpu] wandb unavailable: {e}", flush=True)
+        return None
+    return wandb
+
+
 def _epoch_logs(epoch: int, lr: float, seconds: float,
                 sums: Optional[Dict[str, torch.Tensor]], n: int
                 ) -> Dict[str, Any]:
@@ -734,11 +770,15 @@ def replicate(run: Run) -> None:
                                        *run.model.buffers()])
 
 
-def train(run: Run, run_dir: str) -> Optional[Dict[str, Any]]:
+def train(run: Run, run_dir: str,
+          ns: Optional[argparse.Namespace] = None
+          ) -> Optional[Dict[str, Any]]:
     """`main.py`'s loop from the sanity check on; returns the last
     epoch's logs (those of the validation with `validation_only`). Over a
     mesh every rank runs it; only rank 0 writes and prints, and its logs
-    hold the validation's."""
+    hold the validation's. `ns`: the parsed flags, whose `--wandb-*`
+    ones start wandb after the validation-only return, as in `main.py`
+    (None: no wandb)."""
     cfg, t = run.cfg, run.cfg.train
     main_rank = run.is_main
     ckpt_dir = os.path.join(run_dir, "checkpoints")
@@ -773,6 +813,8 @@ def train(run: Run, run_dir: str) -> Optional[Dict[str, Any]]:
             csv_logger.log({"epoch": next_epoch, **logs})
         return logs
 
+    wandb = (start_wandb(ns, cfg, run_dir) if ns is not None and main_rank
+             else None)
     checkpoint_helper = CheckpointHelper(tuple(t.checkpointing_metrics))
     n_epochs = t.n_epochs
     epoch, logs = next_epoch, None
@@ -817,6 +859,8 @@ def train(run: Run, run_dir: str) -> Optional[Dict[str, Any]]:
                 save(os.path.join(ckpt_dir, "ckpt_resume.pt"), epoch, logs)
             if main_rank:
                 csv_logger.log(logs)
+            if wandb is not None:
+                wandb.log(logs, step=epoch)
             say(json.dumps(logs), flush=True)
     except KeyboardInterrupt:
         raise
@@ -853,7 +897,7 @@ def train_rank(mesh: Mesh, cfg: EMSANetConfig, argv: Sequence[str]
         print(f"[emsanet-torch] run dir: {run_dir}", flush=True)
         print(f"[emsanet-torch] data parallel over {mesh.size} ranks "
               f"({run.device.type})", flush=True)
-    return train(run, run_dir)
+    return train(run, run_dir, parse_namespace(list(argv))[0])
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -875,7 +919,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     run = setup(cfg, a.device)
     run_dir = make_run_dir(cfg, argv)
     print(f"[emsanet-torch] run dir: {run_dir}", flush=True)
-    train(run, run_dir)
+    train(run, run_dir, a)
     return 0
 
 

@@ -14,6 +14,7 @@ import dataclasses
 import glob
 import json
 import os
+import sys
 
 import pytest
 import torch
@@ -155,9 +156,12 @@ def test_resume_parses_as_jax(tmp_path):
                     == getattr(getattr(want, section), name)), name
 
 
-def test_resume_continues_a_run(tmp_path, capsys):
+def test_resume_continues_a_run(tmp_path, capsys, monkeypatch):
     """A 1-epoch run, then `resume <run_dir> --n-epochs 2`: a new run
-    directory that starts at epoch 1 from the first run's checkpoint."""
+    directory that starts at epoch 1 from the first run's checkpoint.
+    The first run asks for `--wandb-mode online` where `wandb` cannot be
+    imported: it prints `main.py`'s line and trains on to its end."""
+    monkeypatch.setitem(sys.modules, "wandb", None)  # import fails
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -168,11 +172,13 @@ def test_resume_continues_a_run(tmp_path, capsys):
                 "--synthetic-n-samples", "2", "--n-epochs", "1",
                 "--n-workers", "1", "--skip-sanity-check",
                 "--class-weighting", "none", "--results-basepath",
-                str(tmp_path)]
+                str(tmp_path), "--wandb-mode", "online"]
         assert trainer.main(argv) == 0
         (first,) = os.listdir(tmp_path / "synthetic")
         first = str(tmp_path / "synthetic" / first)
-        capsys.readouterr()
+        out = capsys.readouterr().out
+        assert "[emsanet-tpu] wandb unavailable: " in out
+        assert os.path.exists(os.path.join(first, "finished"))
         assert trainer.main(["resume", first, "--n-epochs", "2"]) == 0
     finally:
         torch.set_num_threads(threads)

@@ -8,8 +8,10 @@ no filter, gzip, shuffle + gzip and fletcher32; every supported dtype in
 both byte orders; user blocks of 0 and 512 bytes; group B-trees several
 levels deep, nested groups and chunk B-trees several levels deep,
 4-byte addresses; object references into a `#refs#` group, as
-MATLAB writes them. Files written with `libver='latest'` and structures
-the reader does not cover raise `NotPortedError` naming the structure.
+MATLAB writes them. Files of the newer formats read equal too (the
+matrix over libver, layouts and chunk indexes, filters and group storage:
+`tests/test_torch_port_hdf5_latest.py`); structures the reader does not
+cover raise `NotPortedError` naming the structure.
 """
 
 import numpy as np
@@ -230,17 +232,23 @@ def test_chunk_filter_mask_is_obeyed(tmp_path):
 
 
 def test_latest_format_is_refused(tmp_path):
+    """Read now: a file of `libver='latest'` (superblock 3, an OHDR root
+    group with a link message, a compact dataset) equals h5py."""
     path = str(tmp_path / "latest.h5")
     with h5py.File(path, "w", libver="latest") as f:
         f["x"] = np.arange(4)
-    with pytest.raises(NotPortedError,
-                       match="HDF5 superblock version 3.*latest.h5"):
-        hdf5.File(path)
+    with hdf5.File(path) as f, h5py.File(path, "r") as ref:
+        assert f._read(0, 9)[8] == 3
+        _all_reads(f["x"], ref["x"])
 
 
 @pytest.mark.parametrize("case", ["lzf", "compound", "vlen_string",
                                   "enum", "soft_link", "ohdr_group"])
 def test_uncovered_structures_are_refused(tmp_path, case):
+    """Compound, variable-length and enumeration datatypes raise
+    `NotPortedError` naming them; lzf chunks, a soft link and a group
+    with tracked creation order (a version-2 header) read equal to h5py
+    now."""
     path = str(tmp_path / f"{case}.h5")
     with h5py.File(path, "w") as f:
         if case == "lzf":
@@ -259,14 +267,22 @@ def test_uncovered_structures_are_refused(tmp_path, case):
             f["y"] = np.arange(3)
             f["x"] = h5py.SoftLink("/y")
         else:  # tracked creation order needs a version-2 header
-            f.create_group("x", track_order=True)
-    want = {"lzf": "HDF5 filter lzf", "compound": "compound datatypes",
+            g = f.create_group("x", track_order=True)
+            for name in ("b", "a", "c"):
+                g[name] = np.arange(len(name) + 2)
+    want = {"compound": "compound datatypes",
             "vlen_string": "variable-length datatypes",
-            "enum": "enumeration datatypes", "soft_link": "soft links",
-            "ohdr_group": "version-2 object headers"}[case]
-    with hdf5.File(path) as f:
-        with pytest.raises(NotPortedError, match=want):
-            f["x"]
+            "enum": "enumeration datatypes"}.get(case)
+    with hdf5.File(path) as f, h5py.File(path, "r") as ref:
+        if want:
+            with pytest.raises(NotPortedError, match=want):
+                f["x"]
+        elif case == "ohdr_group":
+            assert f["x"].keys() == list(ref["x"].keys()) == ["b", "a", "c"]
+            for name in ref["x"]:
+                _all_reads(f["x"][name], ref["x"][name])
+        else:
+            _all_reads(f["x"], ref["x"])
 
 
 def test_not_an_hdf5_file(tmp_path):

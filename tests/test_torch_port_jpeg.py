@@ -12,13 +12,14 @@ progressive 4:4:4, 4:2:2, 4:2:0 and gray files at odd sizes, optimized
 and with restarts, on CMYK files and YCCK ones made by patching the
 Adobe transform byte of a CMYK file, and on a hypothesis sweep of sizes,
 subsamplings, qualities, restart intervals, optimized Huffman tables and
-progressive coding. A progressive file whose scans leave coefficient
-bits unknown, 12-bit and arithmetic-coded files raise `NotPortedError`
-naming the file. (The prepared-dataset loader's `.jpg` files:
+progressive coding. 12-bit files raise `NotPortedError` naming the file,
+as PIL raises; arithmetic-coded, lossless and smoothed progressive
+files: `tests/test_torch_port_jpeg_coding.py`. (The prepared-dataset
+loader's `.jpg` files:
 `tests/test_torch_port_datasets.py::test_jpeg_rgb_is_refused`.)
 
-Write the fixtures anew with `python tests/test_torch_port_jpeg.py`;
-`python tests/test_torch_port_jpeg.py --time` prints the host ms per
+Write the fixtures anew with `PYTHONPATH=. python
+tests/test_torch_port_jpeg.py`; with `--time` it prints the host ms per
 640x480 decode (4:2:0 and 4:4:4, baseline and progressive, quality 75)
 of the port's decoder and of PIL's, as JSON (the median of 30 decodes,
 one thread).
@@ -186,26 +187,29 @@ def _scans(blob: bytes):
 
 
 def test_progressive_and_cmyk_are_refused(tmp_path):
-    """What stays unported of them: a progressive file whose scans leave
-    coefficient bits unknown (each prefix of a progressive file's scans;
-    libjpeg-turbo smooths those blocks), a 12-bit CMYK file and an
-    arithmetic-coded one."""
+    """What was refused of them and is decoded now, equal to PIL: each
+    prefix of a progressive file's scans (libjpeg-turbo smooths the
+    blocks whose coefficient bits they leave unknown) and a CMYK file
+    relabelled arithmetic-coded (SOF9: its Huffman stream read as
+    arithmetic data). A 12-bit CMYK file stays refused, as PIL refuses
+    it."""
     blob = encode(16, 24, "RGB", 0, progressive=True)
     for end in _scans(blob)[1:]:
         path = tmp_path / "progressive.jpg"
         path.write_bytes(blob[:end] + b"\xff\xd9")
-        with pytest.raises(NotPortedError, match="coefficient bits unknown"
-                           ".*progressive.jpg"):
-            jpeg.read_jpeg(str(path))
+        got = jpeg.read_jpeg(str(path))
+        assert np.array_equal(got, _pil(path.read_bytes()))
     cmyk = encode(16, 24, "CMYK", 0)
     sof = cmyk.index(b"\xff\xc0")
-    for byte, offset, want in ((12, 4, "12-bit"),
-                               (0xC9, 1, "arithmetic-coded sequential")):
-        path = tmp_path / "cmyk.jpg"
-        path.write_bytes(cmyk[:sof + offset] + bytes([byte])
-                         + cmyk[sof + offset + 1:])
-        with pytest.raises(NotPortedError, match=f"{want}.*cmyk.jpg"):
-            jpeg.read_jpeg(str(path))
+    path = tmp_path / "cmyk.jpg"
+    path.write_bytes(cmyk[:sof + 1] + b"\xc9" + cmyk[sof + 2:])
+    assert np.array_equal(jpeg.read_jpeg(str(path)),
+                          _pil(path.read_bytes()))
+    path.write_bytes(cmyk[:sof + 4] + bytes([12]) + cmyk[sof + 5:])
+    with pytest.raises(OSError):
+        _pil(path.read_bytes())
+    with pytest.raises(NotPortedError, match="12-bit.*cmyk.jpg"):
+        jpeg.read_jpeg(str(path))
     with pytest.raises(ValueError, match="not a JPEG"):
         jpeg.decode_jpeg(b"\x89PNG", "x.png")
 

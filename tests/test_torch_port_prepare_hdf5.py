@@ -19,7 +19,14 @@ digests, on the CPU.
 The tool regenerates `expected.json` here; the port, with `h5py` and PIL
 blocked, writes trees with the same digests (as `chip_smoke.py`'s
 `[prepare]` phase checks on the card's machine, where neither exists).
-Write the fixtures anew with `python tests/test_torch_port_prepare_hdf5.py`.
+  ../hdf5_latest/  the same arrays written as a newer h5py writes them
+      (libver 'latest': superblock 3, version-2 object headers, dense
+      links in fractal heaps, chunk indexes of layout message version 4,
+      lzf; `write_nyuv2(latest=True)`, `HYP_LATEST`), which prepare to
+      the same digests.
+
+Write the fixtures anew with `PYTHONPATH=. python
+tests/test_torch_port_prepare_hdf5.py`.
 """
 
 import json
@@ -37,6 +44,7 @@ import chip_smoke
 h5py = pytest.importorskip("h5py")
 
 DATA = ROOT / "tests" / "data" / "hdf5"
+LATEST = ROOT / "tests" / "data" / "hdf5_latest"
 NYU_H, NYU_W, NYU_SCENES = 480, 640, ("kitchen", "bedroom", "living_room")
 HYP_H, HYP_W, HYP_FRAMES = 192, 256, (0, 1)
 MATLAB_HEADER = (b"MATLAB 7.3 MAT-file, Platform: GLNXA64, Created on: "
@@ -53,9 +61,15 @@ def _blocks(rng, n, block, extra, lo, hi, dtype, h, w):
     return full.astype(dtype)
 
 
-def write_nyuv2(path):
+def write_nyuv2(path, latest=False):
     """The NYUv2-layout .mat: MATLAB arrays (H, W, C, N) stored reversed,
-    (N, C, W, H) as h5py reads them."""
+    (N, C, W, H) as h5py reads them. `latest`: the same arrays as a
+    newer h5py writes them (libver 'latest': superblock 3, version-2
+    headers, chunk indexes of layout message version 4; tracked creation
+    order), plus NYUv2's `names` cell (6 of its class names), which the
+    preparers do not read: the root and `#refs#` then hold more links
+    than a compact group's 8 and keep them dense, in a fractal heap, as
+    the real file's do."""
     rng = np.random.RandomState(0)
     n = len(NYU_SCENES)
     args = (NYU_H, NYU_W)
@@ -65,7 +79,14 @@ def write_nyuv2(path):
     raw[:, :160, :320] = 0.0  # missing raw depth
     labels = _blocks(rng, n, 160, (), 0, 895, np.uint16, *args)
     instances = _blocks(rng, n, 160, (), 0, 4, np.uint8, *args)
-    with h5py.File(path, "w", userblock_size=512) as f:
+    kw = dict(libver="latest", track_order=True) if latest else {}
+    cells = [("sceneTypes", NYU_SCENES),
+             ("scenes", [f"{s}_{i + 1:04d}" for i, s in enumerate(
+                 NYU_SCENES)])]
+    if latest:
+        cells.append(("names", ("wall", "floor", "cabinet", "bed", "chair",
+                                "sofa")))
+    with h5py.File(path, "w", userblock_size=512, **kw) as f:
         for name, arr, cls in (("images", images, "uint8"),
                                ("depths", depths, "single"),
                                ("rawDepths", raw, "single"),
@@ -77,10 +98,9 @@ def write_nyuv2(path):
                                   chunks=(1,) + stored.shape[1:],
                                   compression="gzip", compression_opts=9)
             ds.attrs["MATLAB_class"] = np.bytes_(cls)
-        for cell, words in (("sceneTypes", NYU_SCENES),
-                            ("scenes", [f"{s}_{i + 1:04d}"
-                                        for i, s in enumerate(NYU_SCENES)])):
-            refs = f.create_dataset(cell, (1, n), dtype=h5py.ref_dtype)
+        for cell, words in cells:
+            refs = f.create_dataset(cell, (1, len(words)),
+                                    dtype=h5py.ref_dtype)
             refs.attrs["MATLAB_class"] = np.bytes_("cell")
             for i, word in enumerate(words):
                 ds = f.create_dataset(f"#refs#/{cell}_{i}", data=np.array(
@@ -91,7 +111,24 @@ def write_nyuv2(path):
         fh.write(MATLAB_HEADER + bytes(8) + b"\x00\x02IM")
 
 
-def write_hypersim(root):
+# the newer-format Hypersim tree: each geometry file's layout (libver
+# 'latest'); between them lzf, a fixed array, an extensible array and a
+# v2 B-tree chunk index
+HYP_LATEST = {
+    "depth_meters": dict(chunks=(64, 64), compression="lzf"),
+    "normal_cam": dict(chunks=(64, 64, 3), maxshape=(None, None, 3),
+                       compression="gzip"),
+    "semantic": dict(chunks=(32, 256), maxshape=(None, HYP_W),
+                     compression="gzip"),
+    "semantic_instance": dict(chunks=(48, 64), compression="gzip",
+                              shuffle=True),
+}
+
+
+def write_hypersim(root, latest=False):
+    """The Hypersim raw tree; `latest`: the same arrays (and the same
+    tonemap JPEGs), each geometry file in the newer format with its
+    layout of `HYP_LATEST`."""
     rng = np.random.RandomState(1)
     scene, cam = "ai_001_001", "cam_00"
     rows = ["scene_name,camera_name,frame_id,included_in_public_release,"
@@ -127,8 +164,13 @@ def write_hypersim(root):
         for kind, arr in (("depth_meters", dist), ("normal_cam", normal),
                           ("semantic", semantic),
                           ("semantic_instance", instance)):
-            with h5py.File(geometry / f"frame.{frame:04d}.{kind}.hdf5",
-                           "w") as f:
+            path = geometry / f"frame.{frame:04d}.{kind}.hdf5"
+            if latest:
+                with h5py.File(path, "w", libver="latest") as f:
+                    f.create_dataset("dataset", data=arr,
+                                     **HYP_LATEST[kind])
+                continue
+            with h5py.File(path, "w") as f:
                 f.create_dataset("dataset", data=arr, chunks=arr.shape,
                                  compression="gzip", compression_opts=9)
 
@@ -138,13 +180,14 @@ def _pil_array(path):
         return np.asarray(img)
 
 
-def tool_digests(tmp):
-    """{set: digests} of the tool's trees from the committed fixtures."""
+def tool_digests(tmp, data=DATA):
+    """{set: digests} of the tool's trees from the committed fixtures
+    (`data`: DATA, or LATEST for the newer-format copies)."""
     splits, mapping = chip_smoke.nyuv2_tables(str(tmp))
     out = {}
-    tool.prepare_nyuv2(str(DATA / "nyuv2" / "nyu_depth_v2_labeled.mat"),
+    tool.prepare_nyuv2(str(data / "nyuv2" / "nyu_depth_v2_labeled.mat"),
                        splits, mapping, str(tmp / "nyuv2"))
-    tool.prepare_hypersim(str(DATA / "hypersim"), str(tmp / "hypersim"))
+    tool.prepare_hypersim(str(data / "hypersim"), str(tmp / "hypersim"))
     for name in ("nyuv2", "hypersim"):
         out[name] = chip_smoke.tree_digests(str(tmp / name), _pil_array)
     return out
@@ -162,6 +205,19 @@ def write_fixtures(out: Path = DATA) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         digests = tool_digests(Path(tmp))
     (out / "expected.json").write_text(json.dumps(digests, indent=1) + "\n")
+    write_latest_fixtures()
+
+
+def write_latest_fixtures(out: Path = LATEST) -> None:
+    """The newer-format copies: the same arrays, so the same prepared
+    trees (expected.json)."""
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    (out / "nyuv2").mkdir(parents=True)
+    (out / "hypersim").mkdir()
+    write_nyuv2(str(out / "nyuv2" / "nyu_depth_v2_labeled.mat"), latest=True)
+    write_hypersim(out / "hypersim", latest=True)
 
 
 def test_fixtures_are_small_and_matlab_shaped():
@@ -203,7 +259,47 @@ def test_port_without_h5py_or_pil_gives_the_expected_digests(tmp_path):
     report = chip_smoke.prepare_hdf5_sets(str(tmp_path))
     assert (report["nyuv2_files"], report["hypersim_files"]) == (23, 13)
     assert len(report["hdf5_frame_ms"]) == 3
+    # the newer-format copies prepare to the same trees
+    assert (report["nyuv2_latest_files"],
+            report["hypersim_latest_files"]) == (23, 13)
+    assert len(report["hdf5_latest_frame_ms"]) == 3
     assert sys.modules["h5py"] is h5py and sys.modules["PIL"] is not None
+
+
+def test_latest_fixtures_are_small_and_of_the_newer_format():
+    """tests/data/hdf5_latest/: superblock 3 after MATLAB's user block,
+    dense root and `#refs#` links, a fixed array per NYUv2 array; the
+    Hypersim files' layouts of `HYP_LATEST` (lzf, a v2 B-tree, an
+    extensible and a fixed array)."""
+    from emsanet_tpu_torch.datasets import hdf5
+
+    assert sum(p.stat().st_size for p in LATEST.rglob("*")
+               if p.is_file()) < 150_000
+    mat = LATEST / "nyuv2" / "nyu_depth_v2_labeled.mat"
+    with open(mat, "rb") as fh:
+        head = fh.read(521)
+    assert head.startswith(b"MATLAB 7.3 MAT-file") and head[520] == 3
+    with hdf5.File(str(mat)) as f:
+        for group in (f.root, f["#refs#"]):
+            kinds = {k for k, _, _ in group._msgs}
+            assert 0x2 in kinds and 0x6 not in kinds  # dense links
+        assert f["images"]._kind == 3 and f["depths"]._kind == 3
+    geometry = next((LATEST / "hypersim").rglob("*_geometry_hdf5"))
+    want = {"depth_meters": (3, [32000]), "normal_cam": (5, [1]),
+            "semantic": (4, [1]), "semantic_instance": (3, [2, 1])}
+    for kind, (index, filters) in want.items():
+        with hdf5.File(str(geometry / f"frame.0001.{kind}.hdf5")) as f:
+            ds = f["dataset"]
+            assert (ds._kind, [fid for fid, _ in ds._filters]) == (index,
+                                                                   filters)
+
+
+def test_latest_expected_digests_are_the_tools(tmp_path):
+    """The tool (h5py, PIL) prepares the newer-format copies to the
+    digests of expected.json: they hold the same arrays."""
+    with open(DATA / "expected.json") as fh:
+        expected = json.load(fh)
+    assert tool_digests(tmp_path, LATEST) == expected
 
 
 if __name__ == "__main__":

@@ -11,6 +11,8 @@ so. Everything that must be unchanged is compared bit for bit.
 import copy
 import json
 import os
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -19,7 +21,6 @@ from torch_tmp_files import remove_large_files
 
 from emsanet_tpu_torch import config as pc
 from emsanet_tpu_torch import train as trainer
-from emsanet_tpu_torch.config import NotPortedError
 from emsanet_tpu_torch.training.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -279,10 +280,34 @@ def _run4_argv(tmp_path, n_epochs=2):
             "--n-workers", "2", "--results-basepath", str(tmp_path)]
 
 
-def test_run4_flags_write_run4_csv_columns(tmp_path, capsys):
+class _FakeWandb(types.ModuleType):
+    """A stand-in `wandb` module that records its `init` and `log`
+    calls."""
+
+    def __init__(self):
+        super().__init__("wandb")
+        self.calls = []
+
+    def init(self, **kw):
+        self.calls.append(("init", kw))
+
+    def log(self, logs, step=None):
+        self.calls.append(("log", copy.deepcopy(logs), step))
+
+
+def test_run4_flags_write_run4_csv_columns(tmp_path, capsys, monkeypatch):
     """A 2-epoch run with run 4's flags: the run directory, and a
-    metrics.csv whose header is run 4's, name for name and in order."""
-    assert trainer.main(_run4_argv(tmp_path)) == 0
+    metrics.csv whose header is run 4's, name for name and in order.
+    With `--wandb-mode offline` (a stand-in `wandb` module) the run calls
+    `wandb.init` once as `main.py` does (project, mode, the run's config
+    as the JAX package's `cfg.to_dict()`, `trainer.wandb_config`, the
+    run directory) and `wandb.log(logs, step=epoch)` with each epoch's
+    logs, those it prints."""
+    fake = _FakeWandb()
+    monkeypatch.setitem(sys.modules, "wandb", fake)
+    argv = _run4_argv(tmp_path) + ["--wandb-mode", "offline",
+                                   "--wandb-project", "run4-port"]
+    assert trainer.main(argv) == 0
     (run_dir,) = [os.path.join(tmp_path, "synthetic", d)
                   for d in os.listdir(os.path.join(tmp_path, "synthetic"))]
     with open(os.path.join(RUN4, "metrics.csv")) as fh:
@@ -300,8 +325,17 @@ def test_run4_flags_write_run4_csv_columns(tmp_path, capsys):
         args = json.load(fh)
     assert args["model"]["head_decode_fusion"] == "decode-planes"  # auto, b8
     assert args["train"]["overfit_n_batches"] == 1
-    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    printed = [json.loads(line) for line in
+               capsys.readouterr().out.strip().splitlines()
+               if line.startswith("{")]
+    last = printed[-1]
     assert last["epoch"] == 1 and np.isfinite(last["valid_semantic_miou"])
+    cfg, _, _ = trainer.parse_args(argv)
+    ns, _ = trainer.parse_namespace(argv)
+    assert fake.calls == [
+        ("init", dict(project="run4-port", mode="offline",
+                      config=trainer.wandb_config(cfg, ns), dir=run_dir)),
+        ("log", printed[-2], 0), ("log", printed[-1], 1)]
 
 
 def test_validation_only_from_a_checkpoint(tmp_path, capsys):
@@ -330,12 +364,17 @@ def test_validation_only_from_a_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,error", [
     (["--n-devices", "3"], ValueError),
-    (["--wandb-mode", "online"], NotPortedError),
-    (["--wandb-mode", "offline"], NotPortedError),
+    (["--wandb-mode", "online"], None),
+    (["--wandb-mode", "offline"], None),
 ], ids=["flags0", "flags1", "flags2"])
 def test_unported_flags_are_refused(flags, error):
-    """wandb is not ported; `--n-devices` is (data parallel), and refuses
-    a batch size (8) that does not divide over its ranks."""
-    with pytest.raises(error):
-        trainer.parse_args(["--device", "cpu", "--dataset", "synthetic",
-                            *flags])
+    """`--n-devices` (data parallel) refuses a batch size (8) that does
+    not divide over its ranks. wandb's modes parse now, to the same
+    configuration (the trainer starts wandb itself, `start_wandb`)."""
+    argv = ["--device", "cpu", "--dataset", "synthetic"]
+    if error is not None:
+        with pytest.raises(error):
+            trainer.parse_args(argv + flags)
+    else:
+        assert trainer.parse_args(argv + flags)[0] == trainer.parse_args(
+            argv)[0]

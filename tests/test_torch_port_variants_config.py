@@ -117,9 +117,12 @@ def test_fused_inference_defaults_off_as_in_jax():
 
 @pytest.mark.parametrize("what", ["n_devices", "wandb"])
 def test_still_refused(what):
-    """wandb is not ported. Data parallel training is (`--n-devices 2`
-    parses), and refuses, as `main.py`, a batch that does not divide
-    over its ranks."""
+    """Data parallel training (`--n-devices 2` parses) refuses, as
+    `main.py`, a batch that does not divide over its ranks. wandb is
+    ported: `--wandb-mode online` parses, and the configuration the
+    trainer hands to `wandb.init` (`trainer.wandb_config`) equals the
+    JAX package's `cfg.to_dict()` for every flag set below, with and
+    without `--no-pretrained-backbone`."""
     argv = ["--device", "cpu", "--dataset", "synthetic"]
     if what == "n_devices":
         cfg, _, _ = trainer.parse_args(argv + ["--n-devices", "2"])
@@ -128,8 +131,15 @@ def test_still_refused(what):
                            "3-device mesh"):
             trainer.parse_args(argv + ["--n-devices", "3"])
         return
-    with pytest.raises(pc.NotPortedError, match="not ported yet"):
-        trainer.parse_args(argv + ["--wandb-mode", "online"])
+    for flags in FLAG_SETS:
+        for extra in ([], ["--no-pretrained-backbone"]):
+            jax_argv = ["--dataset", "synthetic", "--wandb-mode", "online",
+                        *flags, *extra]
+            want = jax_cli.args_to_config(
+                jax_cli.build_parser().parse_args(jax_argv)).to_dict()
+            ns, _ = trainer.parse_namespace(["--device", "cpu", *jax_argv])
+            got = trainer.wandb_config(trainer.config_from_args(ns), ns)
+            assert got == want, flags + extra
 
 
 FLAG_SETS = [
