@@ -24,6 +24,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_jax_native import jax_native_lib
 from torch_tmp_files import remove_large_files
 
 from emsanet_tpu import DataConfig as JaxDataConfig
@@ -49,6 +50,10 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
 import pack_dataset  # noqa: E402
 import prepare_dataset  # noqa: E402
+
+# the JAX package's library in this worker before its first test (a cold
+# checkout's workers race to build it: tests/torch_jax_native.py)
+jax_native_lib()
 
 H, W = 64, 96
 TASKS = ("semantic", "instance", "orientation", "scene")

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_port_model import _random_variables
+from torch_jax_native import jax_native_lib
 
 from emsanet_tpu import DataConfig as JaxDataConfig
 from emsanet_tpu import EMSANetConfig as JaxEMSANetConfig
@@ -37,6 +38,10 @@ from emsanet_tpu.training.step import make_eval_step as jax_eval_step
 from emsanet_tpu_torch import config as pc
 from emsanet_tpu_torch import train as trainer
 from emsanet_tpu_torch.weights import load_flax_variables
+
+# the JAX package's library in this worker before its first test (a cold
+# checkout's workers race to build it: tests/torch_jax_native.py)
+jax_native_lib()
 
 H, W = 64, 96
 TASKS = ("semantic", "instance", "orientation", "scene")

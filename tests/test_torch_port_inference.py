@@ -35,6 +35,7 @@ import torch
 from PIL import Image
 from test_torch_port_model import _random_variables
 from torch_inference_cases import TILE_NAMES, panel_tiles
+from torch_jax_native import jax_native_lib
 from torch_tmp_files import remove_large_files
 
 from emsanet_tpu import DataConfig as JaxDataConfig
@@ -59,6 +60,10 @@ sys.path.insert(0, str(ROOT / "tools"))
 import inference_dataset as jax_dataset  # noqa: E402
 import inference_samples as jax_samples  # noqa: E402
 import prepare_dataset  # noqa: E402
+
+# the JAX package's library in this worker before its first test (a cold
+# checkout's workers race to build it: tests/torch_jax_native.py)
+jax_native_lib()
 
 H, W = 96, 128
 TASKS = ("semantic", "instance", "orientation", "scene")

@@ -18,7 +18,9 @@ which `chip_smoke.py` holds the decoder against on the card's machine)
 are written anew by `python tests/test_torch_port_jpeg_coding.py`;
 `--time` prints the host ms per 640x480 decode of an arithmetic
 (sequential, progressive) and a lossless file against Huffman, port and
-PIL, as JSON.
+PIL, as JSON; `--simd` prints, for each case of the Huffman files
+relabelled SOF10, how many of its 12 files PIL's default decode (with
+libjpeg-turbo's SIMD code) gives other pixels for than the port.
 """
 
 import io
@@ -217,12 +219,86 @@ def test_what_pil_refuses_is_refused():
                    ValueError, "x.jpg: a lossless file in YCbCr")
 
 
+# (h, w), seed of the progressive Huffman files that
+# `test_huffman_stream_read_as_arithmetic_equals_pil_without_simd` relabels
+RELABELLED = [(hw, seed) for hw in ((16, 24), (9, 9), (37, 61), (64, 48))
+              for seed in range(3)]
+
+RELABELLED_CASES = {"444": ("RGB", 0), "422": ("RGB", 1), "420": ("RGB", 2),
+                    "gray": ("L", 0)}
+
+
+def _relabelled(mode, sub):
+    """The case's progressive Huffman files, each relabelled SOF10."""
+    kw = {} if mode == "L" else {"subsampling": sub}
+    blobs = []
+    for (h, w), seed in RELABELLED:
+        blob = encode(h, w, mode, seed, progressive=True, **kw)
+        sof = blob.index(b"\xff\xc2")
+        blobs.append(blob[:sof + 1] + b"\xca" + blob[sof + 2:])
+    return blobs
+
+
+PIL_WITHOUT_SIMD = """
+import sys
+from pathlib import Path
+import numpy as np
+from PIL import Image
+for path in sorted(Path(sys.argv[1]).glob("*.jpg")):
+    with Image.open(path) as img:
+        np.save(path.with_suffix(".npy"), np.asarray(img))
+        np.save(path.with_suffix(".rgb.npy"), np.asarray(img.convert("RGB")))
+"""
+
+
+@pytest.mark.parametrize("case", sorted(RELABELLED_CASES))
+def test_huffman_stream_read_as_arithmetic_equals_pil_without_simd(
+        tmp_path, case):
+    """Progressive Huffman files relabelled progressive arithmetic (SOF2
+    -> SOF10): the Huffman stream is read as arithmetic-coded data, a
+    garbage stream whose coefficients leave the range any encoder
+    writes. libjpeg-turbo decodes such blocks one way in its portable C
+    code and another in its SIMD code: on an AVX2 host 9 of these 48
+    files (3 of the 4:4:4 ones, 2 / 1 of the 4:2:2 / 4:2:0 ones, 3 gray
+    ones; `--simd`) give other pixels with SIMD than without, and a gray
+    file's only SIMD step is the IDCT. The port follows the C code. So
+    PIL with libjpeg-turbo's SIMD switched off (`JSIMD_FORCENONE=1`, read
+    when the library first runs, hence a process of its own) equals the
+    port on every file: where the port and PIL's default decode differ,
+    PIL's two paths differ too."""
+    import os
+    import subprocess
+
+    blobs = _relabelled(*RELABELLED_CASES[case])
+    for i, blob in enumerate(blobs):
+        (tmp_path / f"{i:02d}.jpg").write_bytes(blob)
+    subprocess.run([sys.executable, "-c", PIL_WITHOUT_SIMD, str(tmp_path)],
+                   env={**os.environ, "JSIMD_FORCENONE": "1"}, check=True,
+                   timeout=120)
+    for i, blob in enumerate(blobs):
+        for rgb, suffix in ((False, ".npy"), (True, ".rgb.npy")):
+            want = np.load(tmp_path / f"{i:02d}{suffix}")
+            got = decode_image(blob, rgb=rgb)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert np.array_equal(got, want), (RELABELLED[i], rgb)
+
+
 def _pil_whole(blob: bytes) -> np.ndarray:
     """PIL's decode with the whole file in its read buffer (see
     `test_large_arithmetic_file_equals_pil_with_a_whole_file_buffer`)."""
     with Image.open(io.BytesIO(blob)) as img:
         img.decodermaxblock = len(blob)
         return np.asarray(img)
+
+
+def simd_differences() -> dict:
+    """{case: how many of its 12 relabelled files PIL's default decode,
+    libjpeg-turbo's SIMD code included, gives other pixels for than the
+    port} (`test_huffman_stream_read_as_arithmetic_equals_pil_without_simd`
+    holds the port to PIL with SIMD off)."""
+    return {case: sum(not np.array_equal(decode_image(blob), _pil(blob))
+                      for blob in _relabelled(*spec))
+            for case, spec in sorted(RELABELLED_CASES.items())}
 
 
 def time_decoders(runs: int = 10) -> dict:
@@ -259,5 +335,9 @@ if __name__ == "__main__":
         import json
 
         print(json.dumps(time_decoders()))
+    elif sys.argv[1:] == ["--simd"]:
+        import json
+
+        print(json.dumps(simd_differences()))
     else:
         write_fixtures()

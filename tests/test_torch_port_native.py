@@ -30,7 +30,12 @@ from emsanet_tpu_torch import native
 from emsanet_tpu_torch.datasets.metadata import get_dataset_config
 from emsanet_tpu_torch.datasets.registry import get_dataset
 from emsanet_tpu_torch.preprocessing import transforms
+from torch_jax_native import jax_native_lib
 from torch_port_plain import plain_host_library
+
+# the JAX package's library in this worker before its first test (a cold
+# checkout's workers race to build it: tests/torch_jax_native.py)
+jax_native_lib()
 
 ROOT = Path(__file__).resolve().parent.parent
 MEAN, STD = transforms.RGB_MEAN, transforms.RGB_STD

@@ -69,8 +69,13 @@ from emsanet_tpu_torch.training.step import (
     make_train_step,
 )
 from emsanet_tpu_torch.weights import flax_to_state_dict, load_flax_variables
+from torch_jax_native import jax_native_lib
 from torch_port_plain import plain_host_library
 from torch_tmp_files import remove_large_files
+
+# the JAX package's library in this worker before its first test (a cold
+# checkout's workers race to build it: tests/torch_jax_native.py)
+jax_native_lib()
 
 H = W = 64
 B = 4

@@ -10,6 +10,7 @@ to 32x48.
 
 import numpy as np
 import pytest
+from torch_jax_native import jax_native_lib
 
 from emsanet_tpu import DataConfig as JaxDataConfig
 from emsanet_tpu import EMSANetConfig as JaxEMSANetConfig
@@ -25,6 +26,10 @@ from emsanet_tpu_torch import data
 from emsanet_tpu_torch.datasets.metadata import get_dataset_config
 from emsanet_tpu_torch.datasets.registry import get_dataset
 from emsanet_tpu_torch.preprocessing.transforms import get_preprocessor
+
+# the JAX package's library in this worker before its first test (a cold
+# checkout's workers race to build it: tests/torch_jax_native.py)
+jax_native_lib()
 
 H, W = 48, 64
 TASKS = ("semantic", "instance", "orientation", "scene")
